@@ -15,7 +15,7 @@ trip.  Here each time comes from CUDA events on the card and from
 per-sweep device time itself.  Library (:func:`run_perf_test`) or CLI::
 
     python -m blasted_tpu_torch.utils.perftest --npts 34 --pc ilu0 \\
-        --sweeps 4,4 2,2 --ksp bicgstab [--device cpu]
+        --sweeps 4,4 2,2 --ksp bicgstab [--dtype float32] [--device cpu]
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .timing import synchronize
+from .timing import best_ms, synchronize
 
 __all__ = ["TimingRun", "run_perf_test", "format_report"]
 
@@ -55,33 +55,10 @@ class TimingRun:
     slope_speedup: float = 0.0
 
 
-def _best_ms(fn, device: torch.device, reps: int = 3) -> float:
-    """Best of ``reps`` timings of ``fn()`` after one untimed call: CUDA
-    events around it on a CUDA device, the host clock elsewhere."""
-    fn()
-    synchronize(device)
-    best = float("inf")
-    for _ in range(reps):
-        if device.type == "cuda":
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            ms = (time.perf_counter() - t0) * 1e3
-        best = min(best, ms)
-    return best
-
-
 def _slope_ms(make_fn, device, i1: int, i2: int) -> float:
     """(t(i2) − t(i1)) / (i2 − i1): ms per repetition."""
-    t1 = _best_ms(make_fn(i1), device)
-    t2 = _best_ms(make_fn(i2), device)
+    t1, _ = best_ms(make_fn(i1), device, 3)
+    t2, _ = best_ms(make_fn(i2), device, 3)
     return max((t2 - t1) / (i2 - i1), 0.0)
 
 
@@ -205,6 +182,10 @@ def main(argv=None):
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--sweeps", nargs="+", default=["4,4", "2,2", "1,1"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=("float64", "float32"),
+                    default="float64",
+                    help="value type of the system (float32: the JAX "
+                         "package's on a TPU, which has no x64)")
     args = ap.parse_args(argv)
 
     if args.matrix:
@@ -214,6 +195,7 @@ def main(argv=None):
         b = np.ones(A.nrows)
     else:
         A, b, _ = poisson3d_system((args.npts,) * 3, dist=args.dist)
+    A = A.astype(np.dtype(args.dtype))
 
     base = {"blasted_pc_type": args.pc, "ksp_type": args.ksp,
             "rtol": args.rtol}

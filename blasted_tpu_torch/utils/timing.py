@@ -17,13 +17,37 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["PrecTimers", "synchronize", "total_times"]
+__all__ = ["PrecTimers", "best_ms", "synchronize", "total_times"]
 
 
 def synchronize(device: torch.device) -> None:
     """Wait for the work queued on ``device`` (a no-op off CUDA)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def best_ms(fn, device: torch.device, reps: int) -> tuple:
+    """Best of ``reps`` timed calls of ``fn()`` after one untimed call: CUDA
+    events around each call on a CUDA device, the host clock elsewhere.
+    Returns (ms, the last call's result)."""
+    fn()
+    synchronize(device)
+    best, out = float("inf"), None
+    for _ in range(reps):
+        if device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        best = min(best, ms)
+    return best, out
 
 
 @dataclass

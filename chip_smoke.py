@@ -13,7 +13,14 @@ in float64; K5, both modes of K6 and the block inverse at bs=4 on the g=128
 block band in float32 (the block main path's shapes), at bs=5, g=96 in
 float32 and at bs=4, g=24 in float64.  At the main-path shapes it times
 each kernel, its twin and, where one PyTorch call computes the same
-function, that call.  It then drives both main paths through
+function, that call.  ``[bench]`` then runs every section of the port's
+roofline bench (``blasted_tpu_torch/bench/roofline.py``) cut in size
+(``BENCH_SMOKE``: scalar g=240, bs=4 at g=96, bs=5 at g=80, each past
+4× the L2, the padded CSR at g=64, the solve at npts=66; 14 chained
+iterations, best of 2): each section holds each of its kernels against
+its twin on the section's own operands before timing it, no section may
+fail, each kernel section must launch its kernels, every fraction must lie
+in (0, 1.05] and the bench's JSON line must parse.  It then drives both main paths through
 ``blasted_tpu_torch.api.solve`` on the default device:
 
 - scalar: the 160³ Poisson system in float32, ILU(0) 8,4 (bench.py's
@@ -158,6 +165,8 @@ from blasted_tpu_torch.api import (
     solve_refined,
 )
 from blasted_tpu_torch.apps import poisson3d_system, testsolve
+from blasted_tpu_torch.bench import common as bench_common
+from blasted_tpu_torch.bench import roofline
 from blasted_tpu_torch.config import AsyncSolverSettings, FactInit, PrecType
 from blasted_tpu_torch.factory import create_preconditioner, to_device_matrix
 from blasted_tpu_torch.ops import _cuda, bstencil, stencil
@@ -202,7 +211,7 @@ REPLACES = {
 }
 # max |kernel − twin| / max |twin|: the kernels are built to round as their
 # twins do, so these bounds only allow for a different summation order
-TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+TOL = bench_common.TWIN_RTOL
 # the bench's solve (bench.py:640-647): ILU(0) with 8 plain factor sweeps
 # and 4 apply sweeps; below JAX's halo gate the port's factor is plain too
 # (R4), so [main] computes bench.py's factor, the one PADDED_OPTS gives the
@@ -292,6 +301,14 @@ NEWTON_OPTS = dict(MAIN_OPTS, rtol=KRYLOV_RTOL)
 REFINED_RTOL, REFINED_NREFINE = 1e-10, 3
 # [io]: Matrix-Market text round trip, cut to 32³ (MM_NPTS − 2)
 MM_NPTS = 34
+# [bench]: the roofline bench's sections cut in size (the full sizes run
+# as their own command, ``python3 -m blasted_tpu_torch.bench.roofline``),
+# each kernel section's data still past 4× the 50 MB L2 (7-8×): at
+# g = 160 / 64 / 48, 1.5-2.2× L2, the chained kernels hit in L2 and K3,
+# K5 and K6 read 1.01-1.14 of the H100's spec bandwidth; the padded CSR
+# at g = 64 and the solve at 64³
+BENCH_SMOKE = roofline.Settings(i2=14, reps=2, scalar_g=240, block_g4=96,
+                                block_g5=80, csr_g=64, npts=66)
 
 
 def fail(msg: str):
@@ -1072,9 +1089,11 @@ def seeded_poisson(npts, dtype):
     grid ``npts`` = (nx, ny, nz) points) with the
     right-hand side b = A·x_ref, x_ref uniform in [−1, 1] from a seed.
     The generator's own b is an eigenvector of this matrix (Jacobi, GS and
-    CSC-BGS converge in one step on it), and rounding x to float32 alone
-    leaves its true residual near 5e-5 at 160³, above rtol 1e-5; this b
-    makes every method iterate and lets float32 reach 1.1·rtol."""
+    CSC-BGS converge in one step on it), and a float32 BiCGSTAB solve of
+    it stopped at rtol 1e-5 leaves a true residual near 5e-5 at 160³, the
+    port's and JAX's alike (``scripts/solve_f32_witness.py``; the exact
+    solution rounded to float32 alone leaves 8.6e-6); this b makes every
+    method iterate and lets float32 reach 1.1·rtol."""
     pts = (npts,) * 3 if isinstance(npts, int) else tuple(npts)
     A, _, _ = poisson3d_system(pts, dist="uniform")
     x_ref = np.random.default_rng(X_REF_SEED).uniform(-1.0, 1.0, A.nrows)
@@ -2440,6 +2459,49 @@ def main_cards(ncards: int) -> int:
     return 0
 
 
+def bench_phase(card: dict) -> None:
+    """[bench]: every section of ``bench/roofline.py`` at ``BENCH_SMOKE``'s
+    cut sizes through ``run_sections``, which fails a section that raises,
+    finds a kernel off its twin on the section's operands, reads a fraction
+    above 1.05 of the measured stream or of the spec, or on the card
+    launched none of one of its kernels: no section may fail,
+    each kernel section's yardstick must be past 4× the L2, and the
+    bench's JSON line must parse with bench.py's four keys.  Prints each
+    entry and each section's launches; writes no file."""
+    b = BENCH_SMOKE.bench("cuda", card)
+    fracs, failed = roofline.run_sections(b, BENCH_SMOKE)
+    if failed:
+        fail(f"bench: sections {failed} failed: "
+             f"{ {p: b.detail[p + '_FAILED'] for p in failed} }")
+    for name, rec in sorted(b.detail.items()):
+        if "ms_per_iter" in rec:
+            print(f"[bench] {name}: {rec['ms_per_iter'] * 1e3:.1f} µs/iter, "
+                  f"{rec['bytes_model']} B, {rec['frac_measured_stream']:.3f}"
+                  f" of the stream, {rec['frac_spec_hbm']:.3f} of spec",
+                  flush=True)
+        elif "gb_per_s" in rec:
+            if not rec["past_4x_l2"]:
+                fail(f"bench: {name}'s {rec['bytes']} B are under 4× L2")
+            print(f"[bench] {name}: {rec['gb_per_s']:.0f} GB/s by "
+                  f"{rec['by']} ({rec['bytes']} B, past 4× L2: "
+                  f"{rec['past_4x_l2']})", flush=True)
+        elif name.endswith("_vs_twin"):
+            print(f"[bench] {name}: max_abs_err {rec['max_abs_err']}, "
+                  f"rel_err {rec['rel_err']} (≤ {rec['rtol']})", flush=True)
+        elif name.endswith("_launches"):
+            print(f"[bench] {name}: {json.dumps(rec['kernels'])}",
+                  flush=True)
+    solve = b.detail["solve_bicgstab_diailu0"]
+    print(f"[bench] solve: {solve['iters']} iterations, true relres "
+          f"{solve['true_relres_f64']:.3e}, {solve['seconds']:.4f} s",
+          flush=True)
+    line = json.loads(bench_common.summary_line(fracs))
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} \
+            or not 0.0 < line["value"] <= bench_common.MAX_FRACTION:
+        fail(f"bench: summary line {line}")
+    print(f"[bench] line: {json.dumps(line)}", flush=True)
+
+
 def phase(name: str, fn, *args, mesh=None):
     """Run one phase and print its elapsed seconds, taken after
     synchronising the current card or, given ``mesh``, every card of it."""
@@ -2460,20 +2522,10 @@ def main(argv=None) -> int:
                          "cards, one shard per card, instead of the one-card "
                          "phases")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "false); nothing was checked", file=sys.stderr)
-        return 2
+    card = bench_common.require_card("chip_smoke")   # exits 2 without CUDA
     if args.cards is not None:
         return main_cards(args.cards)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    smi = smi.splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    print(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+    kind, smi = card["device"], card["nvidia_smi"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2486,6 +2538,8 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
 
     shapes = phase("kernel", check_all_kernels)
+    torch.cuda.empty_cache()
+    phase("bench", bench_phase, card)
     torch.cuda.empty_cache()
 
     # each path launched only its own kernels (expect_launches)

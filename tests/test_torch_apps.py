@@ -149,6 +149,25 @@ def test_perftest_on_a_small_grid():
     assert set(vars(runs[0])) == set(vars(perftest.TimingRun()))
 
 
+@pytest.mark.parametrize("flag,dtype", [([], np.float64),
+                                        (["--dtype", "float32"], np.float32)])
+def test_perftest_cli_dtype(monkeypatch, capsys, flag, dtype):
+    """The CLI's ``--dtype``: the system reaches ``run_perf_test`` in float64
+    by default and in float32 when asked (the JAX package's type on a TPU,
+    which has no x64: ``perf/PERFTEST_r05.txt``)."""
+    seen = []
+
+    def spy(A, b, base, sweep_list, **kw):
+        seen.append((A.vals.dtype, sweep_list, base["rtol"], kw["device"]))
+        return []
+
+    monkeypatch.setattr(perftest, "run_perf_test", spy)
+    perftest.main(["--npts", "6", "--device", "cpu", "--rtol", "1e-5",
+                   "--sweeps", "8,6", "4,6", *flag])
+    assert seen == [(np.dtype(dtype), [(8, 6), (4, 6)], 1e-5, "cpu")]
+    assert "slope-spd" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("use_scaling", [False, True])
 def test_convergence_history_matches_jax(use_scaling):
     """The per-sweep remainder and L/U errors of the padded ILU(0), to
