@@ -20,14 +20,16 @@ that the CUDA kernels run::
   ``bench.py:359-561``): K5 (``bdia_spmv_stencil``, chained on the band
   scaled once by 1/(4k²)), the compressed block
   factor K6 (``bdia_factor_sweeps_compressed`` with the diagonal mask
-  full), and the SoA apply sweeps (``ops/bdia.py``, torch operations) after
-  the block inverse kernel.
+  full), and the apply pair after the block inverse kernel: K7's lower,
+  then its upper mode (``ops/bdia.py``'s sweep functions).
 - ``csr`` (g = 110; ``bench.py:563-611``): the padded-CSR gather SpMV
   (``ops/spmv.py::spmv``), a detail outside the min; its working set is
   printed beside the L2.
 - ``solve`` (npts = 162; ``bench.py:613-697``): ``poisson3d_system``
-  uniform in float32, 8 plain factor sweeps, 4 apply sweeps, BiCGSTAB to
-  rtol 1e-5, on the host clock, with the true relative residual in float64.
+  uniform in float32, 8 plain factor sweeps (K8, ``dia_factor_sweep`` over
+  one pruned plan, bench.py's ``dia_factor_sweep_tuple``), 4 apply sweeps
+  (K2), BiCGSTAB (K1) to rtol 1e-5, on
+  the host clock, with the true relative residual in float64.
 
 The knobs are bench.py's environment variables with its defaults
 (``BENCH_I1``, ``BENCH_I2``, ``BENCH_REPS``, ``BENCH_PARTS``,
@@ -68,12 +70,17 @@ from ..ops.bstencil import (
     bdia_block_inverse,
     bdia_factor_ref,
     bdia_factor_stencil,
+    bdia_lower_sweep_ref,
+    bdia_lower_sweep_stencil,
     bdia_spmv_ref,
     bdia_spmv_stencil,
+    bdia_upper_sweep_ref,
+    bdia_upper_sweep_stencil,
     block_inverse_ref,
 )
 from ..ops.spmv import spmv
 from ..ops.stencil import (
+    PlainSweepPlan,
     dia_factor_sweeps_stencil,
     dia_spmv_ref,
     dia_spmv_stencil,
@@ -82,6 +89,8 @@ from ..ops.stencil import (
     factor_stencil_eligible,
     factor_u0_ref,
     factor_u0_stencil,
+    plain_factor_sweep_ref,
+    plain_factor_sweep_stencil,
     tri_sweep_ref,
     tri_sweep_stencil,
 )
@@ -92,7 +101,7 @@ from ..ops.sweeps import (
     upper_solve_sweep,
 )
 from ..precond.bdia_ilu0 import bdia_factor_sweeps_compressed
-from ..precond.dia_ilu0 import dia_factor_sweep_tuple, dia_pairs
+from ..precond.dia_ilu0 import dia_factor_sweep, dia_pairs
 from ..solvers import bicgstab
 from ..sparse.csr import PaddedCSR
 from ..sparse.bdia import shift_last
@@ -117,9 +126,11 @@ __all__ = ["Settings", "SECTIONS", "REQUIRED", "scalar_models",
 SECTIONS = ("scalar", "block4", "block5", "csr", "solve")
 IN_MIN = ("scalar", "block4", "block5")
 # the kernels each kernel section must launch on the card
-_BLOCK_KERNELS = ("bspmv", "bfactor_dinv", "bfactor_u0", "block_inverse")
+_BLOCK_KERNELS = ("bspmv", "bfactor_dinv", "bfactor_u0", "block_inverse",
+                  "bdia_lower_sweep", "bdia_upper_sweep")
 REQUIRED = {"scalar": ("dia_spmv", "tri_sweep", "factor_u0", "factor_lower"),
-            "block4": _BLOCK_KERNELS, "block5": _BLOCK_KERNELS}
+            "block4": _BLOCK_KERNELS, "block5": _BLOCK_KERNELS,
+            "solve": ("dia_spmv", "tri_sweep", "plain_factor_sweep")}
 ISZ = 4                       # float32
 SOLVE_BUILD_SWEEPS = 8        # bench.py:645
 # the true residual may reach 1.1·rtol in float64 and 7.8·rtol in float32:
@@ -439,6 +450,17 @@ def bench_block(b: Bench, bs: int, g: int) -> list:
     dinv = bdia_block_inverse(ilu[d0], mask[d0])
     del data
     zc = cols_of(x)
+    # K7's two modes on the apply's own operands: the first pair of sweeps
+    # of the timed loop (y from zero, then the upper on y1 as y and z)
+    y1 = bdia_lower_sweep_ref(ilu, offsets, lower, zc, torch.zeros_like(zc))
+    b.held(f"{name}_bdia_lower_sweep_vs_twin",
+           lambda: bdia_lower_sweep_stencil(ilu, offsets, lower, zc, y1),
+           lambda: bdia_lower_sweep_ref(ilu, offsets, lower, zc, y1))
+    b.held(f"{name}_bdia_upper_sweep_vs_twin",
+           lambda: bdia_upper_sweep_stencil(ilu, dinv, offsets, upper, y1,
+                                            y1),
+           lambda: bdia_upper_sweep_ref(ilu, dinv, offsets, upper, y1, y1))
+    del y1
 
     def mk_apply(iters):
         def run():
@@ -532,9 +554,14 @@ def bench_solve(b: Bench, npts: int, napply: int, tol: float, maxiter: int,
                    else D.mask[d] for d in range(k))
     print(f"[solve] n={D.nrows} nnz={nnz}", file=sys.stderr)
 
+    plan = PlainSweepPlan(offsets, pairs, d0, mask_t, prune=True,
+                          device=dev)
+    b.held("solve_plain_factor_sweep_vs_twin",
+           lambda: plain_factor_sweep_stencil(plan, D.data, D.data),
+           lambda: plain_factor_sweep_ref(plan, D.data, D.data))
     ilu = D.data
     for _ in range(SOLVE_BUILD_SWEEPS):
-        ilu = dia_factor_sweep_tuple(offsets, pairs, d0, mask_t, D.data, ilu)
+        ilu = dia_factor_sweep(plan, D.data, ilu)
     dinv = 1.0 / torch.where(ilu[d0] == 0, 1.0, ilu[d0])
     bvec = torch.as_tensor(rhs, dtype=D.dtype, device=dev)
 

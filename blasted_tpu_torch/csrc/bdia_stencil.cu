@@ -1,8 +1,11 @@
-// Block-DIA stencil kernels K5 and K6, and the block inverse, for Hopper
-// (sm_90a), templated on float/double and on the block size bs = 2..8.
+// Block-DIA stencil kernels K5 and K6, the block inverse and the block
+// ILU(0) apply sweep K7, for Hopper (sm_90a), templated on float/double and
+// on the block size bs = 2..8 (K7: 1..8).
 //
 // Hand-written counterparts of the Pallas kernels in
-// blasted_tpu/ops/bstencil.py.  Each kernel has a plain PyTorch twin in
+// blasted_tpu/ops/bstencil.py, and of two functions the JAX package leaves
+// to XLA: the batched Gauss-Jordan inverse and the SoA apply sweeps of
+// blasted_tpu/ops/bdia.py (K7).  Each kernel has a plain PyTorch twin in
 // blasted_tpu_torch/ops/bstencil.py with the same contract; the wrappers
 // there check every operand and call the C entry points below through
 // ctypes.  Built at first CUDA use by blasted_tpu_torch/ops/_cuda.py (one
@@ -37,7 +40,8 @@
 //   bs = 8: 253 registers).  f64 spills in K6 from bs = 6 (bs = 6: up to
 //   88 bytes of spill loads, bs = 7: ~740, bs = 8: ~2.7 KB) and in the block
 //   inverse at bs = 8 (136 bytes); bs = 4 and 5 in f64 do not spill (K6 126
-//   and 168 registers).
+//   and 168 registers).  K7 takes 32 registers at every bs in f32 up to 7
+//   (40 at bs = 8) and 32-48 in f64, in either mode; it never spills.
 //
 // Arithmetic.  Built with -fmad=false, every product and sum is rounded on
 // its own, in the twin's order, and division is IEEE-rounded, so a kernel
@@ -262,6 +266,75 @@ __global__ void bdia_block_inverse_kernel(const T* __restrict__ a,
   }
 }
 
+// K7 — the block ILU(0) apply sweep, which has no pallas_call in the JAX
+// package: XLA fuses soa_unit_lower_sweep (blasted_tpu/ops/bdia.py:66) and
+// soa_upper_solve_sweep (:73) inside the fori_loops of
+// blasted_tpu/precond/bdia_ilu0.py:455, :461.  One Jacobi sweep on (bs, nb)
+// column streams into a fresh output, over the selected block diagonals
+// (their indices into data and their offsets, by value):
+//   lower: out_i = rhs_i - sum_s sum_j data[idx_s][i*bs+j] * x_j[r + o_s]
+//          with rhs = z, x = y (the unit-lower sweep);
+//   upper: t_i = rhs_i - (the same sum) with rhs = y, x = z, then
+//          out_i = sum_j dinv[i*bs+j] * t_j
+// summed per output in the twin's order (soa_mv_streams: over the selected
+// diagonals, then j; the first product starts the sum; the Dinv product
+// starts at dinv[i*bs] * t_0).  With no selected diagonal the sum is 0.
+// What bounds it: memory traffic (2 flops per coefficient, 4-8 bytes each).
+// One thread per block row keeps all bs outputs in registers; every stream
+// is read coalesced along nb; the shifted column streams are left to L2 as
+// K5 leaves x.  The torch form it replaces ran about 30 launches per sweep.
+// Traffic: (nsel*bs*bs + 3*bs)*nb elements per call (+ bs*bs*nb upper).
+struct Sel {
+  int k;
+  int idx[BT_MAX_DIAGS];
+  long long o[BT_MAX_DIAGS];
+};
+
+template <typename T, int BS, bool UPPER>
+__global__ void bdia_sweep_kernel(Sel sel, const T* __restrict__ data,
+                                  const T* __restrict__ dinv,
+                                  const T* __restrict__ rhs,
+                                  const T* __restrict__ x,
+                                  T* __restrict__ out, long long nb) {
+  constexpr int B2 = BS * BS;
+  for (long long r = first_row(); r < nb; r += row_stride()) {
+    T acc[BS];
+#pragma unroll
+    for (int i = 0; i < BS; ++i) acc[i] = T(0);
+    for (int s = 0; s < sel.k; ++s) {
+      const long long q = r + sel.o[s];
+      const bool in = q >= 0 && q < nb;
+      T xv[BS];
+#pragma unroll
+      for (int j = 0; j < BS; ++j) xv[j] = in ? x[(long long)j * nb + q] : T(0);
+      const T* __restrict__ a = data + (long long)sel.idx[s] * B2 * nb + r;
+#pragma unroll
+      for (int i = 0; i < BS; ++i) {
+#pragma unroll
+        for (int j = 0; j < BS; ++j) {
+          const T t = a[(long long)(i * BS + j) * nb] * xv[j];
+          acc[i] = (s == 0 && j == 0) ? t : acc[i] + t;
+        }
+      }
+    }
+    T t[BS];
+#pragma unroll
+    for (int i = 0; i < BS; ++i) t[i] = rhs[(long long)i * nb + r] - acc[i];
+#pragma unroll
+    for (int i = 0; i < BS; ++i) {
+      if (UPPER) {
+        const T* __restrict__ di = dinv + (long long)(i * BS) * nb + r;
+        T v = di[0] * t[0];
+#pragma unroll
+        for (int j = 1; j < BS; ++j) v = v + di[(long long)j * nb] * t[j];
+        out[(long long)i * nb + r] = v;
+      } else {
+        out[(long long)i * nb + r] = t[i];
+      }
+    }
+  }
+}
+
 // Call f with std::integral_constant<int, bs> for bs in 2..8; false for any
 // other block size.
 template <typename F>
@@ -307,6 +380,29 @@ int factor(const Offsets& o, int bs, int out_dinv, const void* base0,
 }
 
 template <typename T>
+int sweep(const Sel& sel, int bs, int upper, const void* data,
+          const void* dinv, const void* rhs, const void* x, void* out,
+          long long nb, cudaStream_t s) {
+  auto go = [&](auto B) {
+    constexpr int BS = decltype(B)::value;
+    if (upper)
+      bdia_sweep_kernel<T, BS, true><<<grid_for(nb), kThreads, 0, s>>>(
+          sel, (const T*)data, (const T*)dinv, (const T*)rhs, (const T*)x,
+          (T*)out, nb);
+    else
+      bdia_sweep_kernel<T, BS, false><<<grid_for(nb), kThreads, 0, s>>>(
+          sel, (const T*)data, (const T*)dinv, (const T*)rhs, (const T*)x,
+          (T*)out, nb);
+  };
+  bool ok = true;
+  if (bs == 1)
+    go(std::integral_constant<int, 1>{});
+  else
+    ok = with_block_size(bs, go);
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
 int block_inverse(int bs, const void* a, const void* mask, void* out,
                   long long nb, cudaStream_t s) {
   const bool ok = with_block_size(bs, [&](auto B) {
@@ -319,9 +415,10 @@ int block_inverse(int bs, const void* a, const void* mask, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64; bs in 2..8.  Pointers are device
-// pointers except `offs`, a host array of offsets.  Returns a cudaError_t as
-// int (cudaErrorInvalidValue for an unsupported bs or dtype).
+// dtype: 0 = float32, 1 = float64; bs in 2..8 (bt_bdia_sweep: 1..8).
+// Pointers are device pointers except `offs` and `idx`, host arrays.
+// Returns a cudaError_t as int (cudaErrorInvalidValue for an unsupported bs
+// or dtype).
 extern "C" {
 
 int bt_bdia_spmv(const long long* offs, int k, int bs, int dtype,
@@ -359,6 +456,27 @@ int bt_bdia_block_inverse(int bs, int dtype, const void* a, const void* mask,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return block_inverse<float>(bs, a, mask, out, nb, s);
   if (dtype == 1) return block_inverse<double>(bs, a, mask, out, nb, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int bt_bdia_sweep(const int* idx, const long long* offs, int k, int bs,
+                  int dtype, int upper, const void* data, const void* dinv,
+                  const void* rhs, const void* x, void* out, long long nb,
+                  void* stream) {
+  if (k < 0 || k > BT_MAX_DIAGS || (upper && dinv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Sel sel;
+  sel.k = k;
+  for (int d = 0; d < BT_MAX_DIAGS; ++d) {
+    sel.idx[d] = d < k ? idx[d] : 0;
+    sel.o[d] = d < k ? offs[d] : 0;
+  }
+  if (nb <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return sweep<float>(sel, bs, upper, data, dinv, rhs, x, out, nb, s);
+  if (dtype == 1)
+    return sweep<double>(sel, bs, upper, data, dinv, rhs, x, out, nb, s);
   return (int)cudaErrorInvalidValue;
 }
 

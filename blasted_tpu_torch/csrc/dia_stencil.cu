@@ -1,8 +1,11 @@
-// DIA-stencil kernels K1-K4 for Hopper (sm_90a), templated on float/double.
+// DIA-stencil kernels K1-K4 and K8 for Hopper (sm_90a), templated on
+// float/double.
 //
 // Hand-written counterparts of the Pallas kernels in
-// blasted_tpu/ops/stencil.py.  Each kernel has a plain PyTorch twin in
-// blasted_tpu_torch/ops/stencil.py with the same contract; the wrappers
+// blasted_tpu/ops/stencil.py (K1-K4), and of the plain Chow-Patel factor
+// sweep that the JAX package leaves to XLA (K8).  Each kernel has a plain
+// PyTorch twin in blasted_tpu_torch/ops/stencil.py with the same contract;
+// the wrappers
 // there check every operand and call the C entry points below through
 // ctypes.  Build (done at first CUDA use by blasted_tpu_torch/ops/_cuda.py,
 // which compiles every csrc/*.cu this way and links them into one library):
@@ -120,10 +123,73 @@ __global__ void factor_lower_kernel(Offsets offs, const T* __restrict__ base_l,
   }
 }
 
+
+// K8 — the plain Chow-Patel factor sweep, which has no pallas_call in the
+// JAX package: XLA fuses dia_factor_sweep_tuple
+// (blasted_tpu/precond/dia_ilu0.py:75, looped at :245) and dia_factor_sweep
+// (:57, looped under fori_loop at blasted_tpu/parallel/dist_dia.py:159).
+// One Jacobi-style sweep from the previous iterate into a fresh (k, n)
+// output; per diagonal d of offset o:
+//   s = base[d][i] - sum_p ilu[dl_p][i] * ilu[du_p][i + o1_p]
+//   s = s / guard(ilu[d0][i + o])          (o < 0)
+//   out[d][i] = mask[d][i] ? s : 0          (where the diagonal re-masks)
+// and a pass-through diagonal (the tuple form's pair-free uppers) copies
+// ilu[d][i].  The pair lists, the pass-through and re-mask flags live in one
+// int64 device table built once per preconditioner or shard
+// (ops/stencil.py::PlainSweepPlan), never copied from the host per sweep:
+//   table[0..k]            first pair of each diagonal (k + 1 entries)
+//   table[k+1..2k]         flags per diagonal (kPassThrough | kMasked)
+//   table[2k+1 + 3p + 0..2] pair p: dl, du, o1
+// Every thread reads the same table entries, so they are broadcast from L1.
+// What bounds it: memory traffic, about 1 flop per byte.  At [main]'s
+// 7-point band it reads 4 base rows and the 7 ilu rows and writes all 7
+// output rows, pass-through rows included (18 streams of n; the twin's
+// torch.stack writes them too).  Reads are coalesced along i; the shifted
+// reads of ilu are left to L2 as K1's are.
+// Traffic: (rows read + k)·n elements (+ n mask bytes per re-masked row).
+// Registers (nvcc -Xptxas -v, sm_90a): 32 in f32, 40 in f64, no spills.
+constexpr long long kPassThrough = 1;
+constexpr long long kMasked = 2;
+
+template <typename T>
+__global__ void plain_factor_sweep_kernel(Offsets offs, int d0,
+                                          const long long* __restrict__ table,
+                                          const T* __restrict__ base,
+                                          const T* __restrict__ ilu,
+                                          const bool* __restrict__ mask,
+                                          T* __restrict__ out, long long n) {
+  const int k = offs.k;
+  const long long* __restrict__ start = table;
+  const long long* __restrict__ flags = table + k + 1;
+  const long long* __restrict__ pair = table + 2 * k + 1;
+  const T* __restrict__ udiag = ilu + (long long)d0 * n;
+  for (long long i = first_row(); i < n; i += row_stride()) {
+    for (int d = 0; d < k; ++d) {
+      const long long f = flags[d];
+      const long long row = (long long)d * n + i;
+      if (f & kPassThrough) {
+        out[row] = ilu[row];
+        continue;
+      }
+      T s = base[row];
+      for (long long p = start[d]; p < start[d + 1]; ++p) {
+        const long long dl = pair[3 * p], du = pair[3 * p + 1];
+        const long long o1 = pair[3 * p + 2];
+        s = s - ilu[dl * n + i] * shifted(ilu + du * n, i + o1, n);
+      }
+      const long long o = offs.o[d];
+      if (o < 0) s = s / guard(shifted(udiag, i + o, n));
+      if (f & kMasked) s = mask[row] ? s : T(0);
+      out[row] = s;
+    }
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64.  Pointers are device pointers except
-// `offs`, a host array of k offsets.  Returns a cudaError_t as int.
+// `offs`, a host array of k offsets (K8's `table` lies on the device).
+// Returns a cudaError_t as int.
 extern "C" {
 
 int bt_dia_spmv(const long long* offs, int k, int dtype, const void* data,
@@ -196,6 +262,29 @@ int bt_factor_lower(const long long* offs, int k, int dtype,
   else if (dtype == 1)
     factor_lower_kernel<double><<<grid_for(n), kThreads, 0, s>>>(
         o, (const double*)base_l, (const double*)u0, (double*)out, n);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+int bt_plain_factor_sweep(const long long* offs, int k, int dtype, int d0,
+                          const void* table, const void* base,
+                          const void* ilu, const void* mask, void* out,
+                          long long n, void* stream) {
+  Offsets o;
+  if (!make_offsets(offs, k, &o) || k < 1 || d0 < 0 || d0 >= k)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long* t = (const long long*)table;
+  if (dtype == 0)
+    plain_factor_sweep_kernel<float><<<grid_for(n), kThreads, 0, s>>>(
+        o, d0, t, (const float*)base, (const float*)ilu, (const bool*)mask,
+        (float*)out, n);
+  else if (dtype == 1)
+    plain_factor_sweep_kernel<double><<<grid_for(n), kThreads, 0, s>>>(
+        o, d0, t, (const double*)base, (const double*)ilu, (const bool*)mask,
+        (double*)out, n);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

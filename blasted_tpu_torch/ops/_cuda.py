@@ -46,6 +46,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _OFFS = ctypes.POINTER(ctypes.c_longlong)
+_IDX = ctypes.POINTER(ctypes.c_int)
 
 # argtypes of each C entry point (csrc/*.cu); every one returns a
 # cudaError_t as int
@@ -58,16 +59,23 @@ _SIGNATURES = {
     "bt_bdia_factor": (_OFFS, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P,
                        _I64, _P),
     "bt_bdia_block_inverse": (_I32, _I32, _P, _P, _P, _I64, _P),
+    "bt_bdia_sweep": (_IDX, _OFFS, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
+                      _P, _I64, _P),
+    "bt_plain_factor_sweep": (_OFFS, _I32, _I32, _I32, _P, _P, _P, _P, _P,
+                              _I64, _P),
 }
 
 #: The source under ``csrc/`` of each kernel, by the name its launches are
 #: counted under (K6 by mode: the Dinv-emitting sweeps and the U0-emitting
-#: final sweep).
+#: final sweep; K7 by mode: the unit-lower and the upper apply sweep).
 KERNEL_SOURCES = {
     "dia_spmv": "dia_stencil.cu", "tri_sweep": "dia_stencil.cu",
     "factor_u0": "dia_stencil.cu", "factor_lower": "dia_stencil.cu",
     "bspmv": "bdia_stencil.cu", "bfactor_dinv": "bdia_stencil.cu",
     "bfactor_u0": "bdia_stencil.cu", "block_inverse": "bdia_stencil.cu",
+    "bdia_lower_sweep": "bdia_stencil.cu",
+    "bdia_upper_sweep": "bdia_stencil.cu",
+    "plain_factor_sweep": "dia_stencil.cu",
 }
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.

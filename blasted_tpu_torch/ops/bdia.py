@@ -1,4 +1,5 @@
-"""Block-DIA products: the SpMV (K5) and the apply sweeps on column streams.
+"""Block-DIA products: the SpMV (K5) and the apply sweeps (K7) on column
+streams.
 
 Port of ``blasted_tpu/ops/bdia.py:31-103`` (reference: the per-row Eigen
 block products of src/blas/matvecs.cpp:107-182 and
@@ -6,20 +7,29 @@ kernels_ilu_apply.hpp:54-94).  Each selected block diagonal contributes
 ``data[d, r] @ x[r + off_d]``.  Block vectors are ``(nb, bs)`` at the API
 boundary and travel inside sweep loops as one ``(bs, nb)`` tensor of column
 streams (the JAX package's tuple of bs columns).  ``bdia_spmv`` is kernel K5
-(CUDA on a CUDA tensor, its twin on a CPU tensor).  The apply sweeps stay
-torch operations, as the JAX package leaves them to XLA: there is no Pallas
-kernel for them.  Within a sweep each diagonal shifts the column streams
-once, and one operation covers all bs output rows; per element the sums run
-in the JAX order (over the diagonals, then over j), so the numbers are the
-same.
+and the apply sweeps are kernel K7 (CUDA on a CUDA tensor, the twin on a
+CPU tensor; ``ops/bstencil.py``), which the JAX package leaves to XLA: it
+has no Pallas kernel for them.  Per element the sums run in the JAX order
+(over the diagonals, then over j), so the numbers are the same.  The other
+products here (``soa_mv_streams``, ``soa_dinv_mul``, the twins' bodies)
+are torch operations: each diagonal shifts the column streams once, and
+one operation covers all bs output rows.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..sparse.bdia import BlockDiaMatrix, shift_last
-from .bstencil import bdia_spmv_stencil
+from ..sparse.bdia import BlockDiaMatrix
+from .bstencil import (
+    bdia_lower_sweep_ref,
+    bdia_lower_sweep_stencil,
+    bdia_spmv_stencil,
+    bdia_upper_sweep_ref,
+    bdia_upper_sweep_stencil,
+    soa_dinv_mul,
+    soa_mv_streams,
+)
 
 __all__ = ["cols_of", "stack_cols", "soa_mv_streams", "soa_dinv_mul",
            "soa_unit_lower_sweep", "soa_upper_solve_sweep", "bdia_mv",
@@ -36,43 +46,29 @@ def stack_cols(cols: torch.Tensor) -> torch.Tensor:
     return cols.t().contiguous()
 
 
-def soa_mv_streams(data: torch.Tensor, offsets, sel, cols: torch.Tensor,
-                   bs: int) -> torch.Tensor:
-    """``y_i = Σ_{d∈sel} Σ_j data[d, i·bs+j]·x_j[·+off_d]`` as (bs, nb)
-    column streams."""
-    acc = None
-    for d in sel:
-        xs = shift_last(cols, offsets[d])
-        blk = data[d].view(bs, bs, -1)
-        for j in range(bs):
-            t = blk[:, j] * xs[j]
-            acc = t if acc is None else acc + t
-    return torch.zeros_like(cols) if acc is None else acc
-
-
-def soa_dinv_mul(dinv: torch.Tensor, cols: torch.Tensor,
-                 bs: int) -> torch.Tensor:
-    """Pre-inverted diagonal-block product: ``z_i = Σ_j dinv[i·bs+j]·t_j``."""
-    blk = dinv.view(bs, bs, -1)
-    acc = blk[:, 0] * cols[0]
-    for j in range(1, bs):
-        acc = acc + blk[:, j] * cols[j]
-    return acc
-
-
 def soa_unit_lower_sweep(data, offsets, lower, z_cols, y_cols, bs: int):
     """One ``y ← z − L y`` sweep on column streams (unit block diagonal;
-    reference: kernels_ilu_apply.hpp block_unit_lower_triangular, :54-67)."""
-    return z_cols - soa_mv_streams(data, offsets, lower, y_cols, bs)
+    reference: kernels_ilu_apply.hpp block_unit_lower_triangular, :54-67):
+    K7's lower mode.  A factor stored in another dtype than the vectors'
+    (``apply_dtype``) takes the twin's products in the vectors' dtype and
+    launches no K7, as the scalar apply takes no K2 (``ops/sweeps.py``):
+    the rule is fixed by the dtypes, never by a failed launch."""
+    if data.dtype != z_cols.dtype:
+        return bdia_lower_sweep_ref(data, offsets, lower, z_cols, y_cols)
+    return bdia_lower_sweep_stencil(data, offsets, lower, z_cols, y_cols)
 
 
 def soa_upper_solve_sweep(data, dinv, offsets, upper, y_cols, z_cols,
                           bs: int):
     """One ``z ← U_ii⁻¹ (y − U z)`` sweep on column streams (diagonal
     pre-inverted; reference: kernels_ilu_apply.hpp block_upper_triangular,
-    :79-94)."""
-    uz = soa_mv_streams(data, offsets, upper, z_cols, bs)
-    return soa_dinv_mul(dinv, y_cols - uz, bs)
+    :79-94): K7's upper mode, with :func:`soa_unit_lower_sweep`'s dtype
+    rule."""
+    if data.dtype != y_cols.dtype:
+        return bdia_upper_sweep_ref(data, dinv, offsets, upper, y_cols,
+                                    z_cols)
+    return bdia_upper_sweep_stencil(data, dinv, offsets, upper, y_cols,
+                                    z_cols)
 
 
 def bdia_mv(A: BlockDiaMatrix, data: torch.Tensor, x: torch.Tensor,

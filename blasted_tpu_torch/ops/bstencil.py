@@ -1,29 +1,36 @@
-"""Block-DIA stencil kernels K5 and K6 and the block inverse: wrappers,
-plain twins, and the block factor's route rule.
+"""Block-DIA stencil kernels K5, K6 and K7 and the block inverse:
+wrappers, plain twins, and the block factor's route rule.
 
-Counterparts of the Pallas kernels of ``blasted_tpu/ops/bstencil.py``.  Each
-kernel is CUDA C++ in ``csrc/bdia_stencil.cu``, templated on bs = 2…8;
-beside it here stands its plain PyTorch twin with the same contract (the
-same operations in the same order, the same exact ``0 → 1`` pivot guard,
-zero reads beyond the ends):
+Counterparts of the Pallas kernels of ``blasted_tpu/ops/bstencil.py`` and
+of two functions the JAX package leaves to XLA.  Each kernel is CUDA C++ in
+``csrc/bdia_stencil.cu``, templated on bs = 2…8 (K7: 1…8); beside it here
+stands its plain PyTorch twin with the same contract (the same operations
+in the same order, the same exact ``0 → 1`` pivot guard, zero reads beyond
+the ends):
 
-=====  ====================  =================  ==========================
-K      wrapper               twin               replaces (Pallas)
-=====  ====================  =================  ==========================
-K5     bdia_spmv_stencil     bdia_spmv_ref      ``_bspmv_call``
-K6     bdia_factor_stencil   bdia_factor_ref    ``_bfactor_call``
-—      bdia_block_inverse    block_inverse_ref  ``gj_inverse_rows`` in XLA
-=====  ====================  =================  ==========================
+=====  ========================  ====================  =====================
+K      wrapper                   twin                  replaces
+=====  ========================  ====================  =====================
+K5     bdia_spmv_stencil         bdia_spmv_ref         ``_bspmv_call``
+K6     bdia_factor_stencil       bdia_factor_ref       ``_bfactor_call``
+—      bdia_block_inverse        block_inverse_ref     ``gj_inverse_rows``
+K7 L   bdia_lower_sweep_stencil  bdia_lower_sweep_ref  ``soa_unit_lower_sweep``
+K7 U   bdia_upper_sweep_stencil  bdia_upper_sweep_ref  ``soa_upper_solve_sweep``
+=====  ========================  ====================  =====================
+
+The last three are XLA work in the JAX package (``ops/bstencil.py`` and
+``ops/bdia.py`` there), with no ``pallas_call``.
 
 A wrapper checks its operands and then dispatches on their device: a CPU
 tensor runs the twin, a CUDA tensor launches the kernel (building it at the
 first use), and any other device raises.  No CUDA call ever falls back to
-the twin.  Launches are counted per kernel, K6 per mode, in
-``_cuda.launches``, and per card in ``_cuda.launches_by_device``.
+the twin.  Launches are counted per kernel, K6 and K7 per mode,
+in ``_cuda.launches``, and per card in ``_cuda.launches_by_device``.
 
 Operands are the container's own layout: block-diagonal values are
 ``(bs², nb)`` component slabs (row i·bs + j = block entry (i, j)), block
-vectors ``(nb, bs)``.  K5 reads the matrix's ``(k, bs², nb)`` data in place;
+vectors ``(nb, bs)`` (K7: ``(bs, nb)`` column streams, the apply's layout).
+K5 and K7 read the factor's ``(k, bs², nb)`` data in place;
 the Pallas kernels' restacking for TPU sublanes (``stack_spmv_coeffs``,
 ``stack_factor_coeffs``) and their padded frame have no counterpart.
 """
@@ -38,28 +45,33 @@ from ..config import SEQUENTIAL, FactInit
 from ..sparse.bdia import shift_last
 from ..sparse.dia import shift_read
 from . import _cuda
-from .stencil import MAX_DIAGS, factor_stencil_eligible
+from .stencil import MAX_DIAGS, _dcode, factor_stencil_eligible
 
 __all__ = [
     "MIN_BS", "MAX_BS",
     "bdia_spmv_stencil", "bdia_spmv_ref",
     "bdia_factor_stencil", "bdia_factor_ref",
     "bdia_block_inverse", "block_inverse_ref", "gj_inverse_rows",
+    "soa_mv_streams", "soa_dinv_mul",
+    "bdia_lower_sweep_stencil", "bdia_lower_sweep_ref",
+    "bdia_upper_sweep_stencil", "bdia_upper_sweep_ref",
     "bdia_factor_takes_compressed_route",
 ]
 
 MIN_BS, MAX_BS = 2, 8    # the block sizes csrc/bdia_stencil.cu instantiates
+SWEEP_MIN_BS = 1         # K7 also takes bs = 1
 
 
 # ------------------------------------------------------------ operand checks
 
-def _check(name: str, bs: int, operands: dict) -> None:
+def _check(name: str, bs: int, operands: dict,
+           min_bs: int = MIN_BS) -> None:
     """Validate one call's operands: ``operands`` maps a name to
     ``(tensor, expected shape)``; the float operands share one dtype
     (float32/float64) and every operand one device; all are contiguous."""
-    if not MIN_BS <= bs <= MAX_BS:
+    if not min_bs <= bs <= MAX_BS:
         raise ValueError(f"{name}: block size {bs} is outside the kernel's "
-                         f"{MIN_BS}..{MAX_BS}")
+                         f"{min_bs}..{MAX_BS}")
     floats = [t for t, _ in operands.values() if t.dtype != torch.bool]
     dtype, device = floats[0].dtype, floats[0].device
     if dtype not in (torch.float32, torch.float64):
@@ -81,10 +93,6 @@ def _offsets_arg(offsets):
     if len(offsets) > MAX_DIAGS:
         raise ValueError(f"{len(offsets)} offsets exceed {MAX_DIAGS}")
     return (ctypes.c_longlong * max(1, len(offsets)))(*offsets), len(offsets)
-
-
-def _dcode(dtype) -> int:
-    return 0 if dtype == torch.float32 else 1
 
 
 def _bs_of(b2: int) -> int:
@@ -203,6 +211,121 @@ def bdia_block_inverse(a: torch.Tensor, mask: torch.Tensor | None = None):
                      None if mask is None else mask.data_ptr(),
                      out.data_ptr(), nb)
     return out
+
+
+# ------------------------------------------------- K7: apply sweeps --------
+
+def soa_mv_streams(data: torch.Tensor, offsets, sel, cols: torch.Tensor,
+                   bs: int) -> torch.Tensor:
+    """``y_i = Σ_{d∈sel} Σ_j data[d, i·bs+j]·x_j[·+off_d]`` as (bs, nb)
+    column streams."""
+    acc = None
+    for d in sel:
+        xs = shift_last(cols, offsets[d])
+        blk = data[d].view(bs, bs, -1)
+        for j in range(bs):
+            t = blk[:, j] * xs[j]
+            acc = t if acc is None else acc + t
+    return torch.zeros_like(cols) if acc is None else acc
+
+
+def soa_dinv_mul(dinv: torch.Tensor, cols: torch.Tensor,
+                 bs: int) -> torch.Tensor:
+    """Pre-inverted diagonal-block product: ``z_i = Σ_j dinv[i·bs+j]·t_j``."""
+    blk = dinv.view(bs, bs, -1)
+    acc = blk[:, 0] * cols[0]
+    for j in range(1, bs):
+        acc = acc + blk[:, j] * cols[j]
+    return acc
+
+
+def bdia_lower_sweep_ref(data, offsets, lower, z_cols, y_cols):
+    """Twin of K7's lower mode: one ``y ← z − L y`` sweep on (bs, nb)
+    column streams, unit block diagonal (reference: kernels_ilu_apply.hpp
+    block_unit_lower_triangular, :54-67)."""
+    bs = z_cols.shape[0]
+    return z_cols - soa_mv_streams(data, offsets, lower, y_cols, bs)
+
+
+def bdia_upper_sweep_ref(data, dinv, offsets, upper, y_cols, z_cols):
+    """Twin of K7's upper mode: one ``z ← U_ii⁻¹ (y − U z)`` sweep on
+    (bs, nb) column streams, diagonal pre-inverted (reference:
+    kernels_ilu_apply.hpp block_upper_triangular, :79-94)."""
+    bs = y_cols.shape[0]
+    uz = soa_mv_streams(data, offsets, upper, z_cols, bs)
+    return soa_dinv_mul(dinv, y_cols - uz, bs)
+
+
+def _sweep_check(name: str, data, offsets, sel, vectors: dict, dinv):
+    """Validate one K7 call: ``data`` (k, bs², nb) with k = len(offsets) ≤
+    128, ``sel`` indices into it, the (bs, nb) column streams ``vectors``
+    and ``dinv`` (bs², nb) in the upper mode."""
+    if len(offsets) > MAX_DIAGS:
+        raise ValueError(f"{name}: {len(offsets)} diagonals exceed "
+                         f"{MAX_DIAGS}")
+    first = next(iter(vectors.values()))
+    if first.dim() != 2:
+        raise ValueError(f"{name}: column streams have shape "
+                         f"{tuple(first.shape)}, expected (bs, nb)")
+    bs, nb = first.shape
+    ops = {key: (t, (bs, nb)) for key, t in vectors.items()}
+    ops["data"] = (data, (len(offsets), bs * bs, nb))
+    if dinv is not None:
+        ops["dinv"] = (dinv, (bs * bs, nb))
+    _check(name, bs, ops, min_bs=SWEEP_MIN_BS)
+    if any(not 0 <= d < len(offsets) for d in sel):
+        raise ValueError(f"{name}: diagonal indices {list(sel)} outside "
+                         f"0..{len(offsets) - 1}")
+
+
+def _sweep_launch(name: str, data, offsets, sel, dinv, rhs, x):
+    """Launch K7 (the mode is ``dinv``'s presence) into a fresh output;
+    ``rhs`` is z (lower) or y (upper), ``x`` the shifted operand."""
+    bs, nb = rhs.shape
+    idx = (ctypes.c_int * max(1, len(sel)))(*sel)
+    offs = (ctypes.c_longlong * max(1, len(sel)))(*(offsets[d] for d in sel))
+    with torch.cuda.device(rhs.device):
+        out = torch.empty_like(rhs)
+        _cuda.launch(name, "bt_bdia_sweep", rhs.device, idx, offs, len(sel),
+                     bs, _dcode(rhs.dtype), int(dinv is not None),
+                     data.data_ptr(),
+                     None if dinv is None else dinv.data_ptr(),
+                     rhs.data_ptr(), x.data_ptr(), out.data_ptr(), nb)
+    return out
+
+
+def bdia_lower_sweep_stencil(data, offsets, lower, z_cols, y_cols):
+    """K7, lower mode: one ``y ← z − L y`` sweep over the block diagonals
+    ``lower`` (indices into ``data``, the factor's ``(k, bs², nb)`` slabs
+    at ``offsets``) on ``(bs, nb)`` column streams, into a fresh
+    ``(bs, nb)`` tensor, so the output never aliases an operand (``z_cols``
+    and ``y_cols`` may be one tensor).
+
+    Every operand has one dtype, float32 or float64, or this raises.  The
+    dtype rule of the apply, as K2's (``ops/sweeps.py``): a factor stored
+    in another dtype than the vectors' (``apply_dtype``) never reaches
+    this wrapper; ``ops/bdia.py::soa_unit_lower_sweep`` computes the twin's
+    products for it, so such an apply launches no K7."""
+    _sweep_check("bdia_lower_sweep", data, offsets, lower,
+                 {"z": z_cols, "y": y_cols}, None)
+    if z_cols.device.type == "cpu":
+        return bdia_lower_sweep_ref(data, offsets, lower, z_cols, y_cols)
+    return _sweep_launch("bdia_lower_sweep", data, offsets, lower, None,
+                         z_cols, y_cols)
+
+
+def bdia_upper_sweep_stencil(data, dinv, offsets, upper, y_cols, z_cols):
+    """K7, upper mode: one ``z ← U_ii⁻¹ (y − U z)`` sweep over the block
+    diagonals ``upper`` with the pre-inverted diagonal blocks ``dinv``
+    (``(bs², nb)``), into a fresh ``(bs, nb)`` tensor.  The
+    operands' contract and the dtype rule are the lower mode's
+    (:func:`bdia_lower_sweep_stencil`; ``soa_upper_solve_sweep``)."""
+    _sweep_check("bdia_upper_sweep", data, offsets, upper,
+                 {"y": y_cols, "z": z_cols}, dinv)
+    if y_cols.device.type == "cpu":
+        return bdia_upper_sweep_ref(data, dinv, offsets, upper, y_cols, z_cols)
+    return _sweep_launch("bdia_upper_sweep", data, offsets, upper, dinv,
+                         y_cols, z_cols)
 
 
 # ------------------------------------------------- K6: compressed factor ----

@@ -1,19 +1,26 @@
-"""DIA-stencil kernels K1–K4: wrappers, plain twins, and the route rule.
+"""DIA-stencil kernels K1–K4 and K8: wrappers, plain twins, and the route
+rule.
 
-Counterparts of the Pallas kernels of ``blasted_tpu/ops/stencil.py``.  Each
-kernel is CUDA C++ in ``csrc/dia_stencil.cu``; beside it here stands its
-plain PyTorch twin with the same contract (same operations in the same
-order, the same exact ``0 → 1`` denominator guard, zero reads beyond the
-ends of the vector):
+Counterparts of the Pallas kernels of ``blasted_tpu/ops/stencil.py`` (K1–K4)
+and of the plain Chow–Patel factor sweep that the JAX package leaves to XLA
+(K8: ``dia_factor_sweep_tuple`` and ``dia_factor_sweep`` of
+``blasted_tpu/precond/dia_ilu0.py``, no ``pallas_call``).  Each kernel is
+CUDA C++ in ``csrc/dia_stencil.cu``; beside it here stands its plain
+PyTorch twin with the same contract (same operations in the same order, the
+same exact ``0 → 1`` denominator guard, zero reads beyond the ends of the
+vector):
 
-====  =====================  ===================  ==========================
-K     wrapper                twin                 replaces (Pallas)
-====  =====================  ===================  ==========================
-K1    dia_spmv_stencil       dia_spmv_ref         ``_spmv_call``
-K2    tri_sweep_stencil      tri_sweep_ref        ``_tri_sweep_call``
-K3    factor_u0_stencil      factor_u0_ref        ``_factor_u0_call``
-K4    factor_lower_stencil   factor_lower_ref     ``_factor_lower_call``
-====  =====================  ===================  ==========================
+====  ==========================  ======================  ===================
+K     wrapper                     twin                    replaces
+====  ==========================  ======================  ===================
+K1    dia_spmv_stencil            dia_spmv_ref            ``_spmv_call``
+K2    tri_sweep_stencil           tri_sweep_ref           ``_tri_sweep_call``
+K3    factor_u0_stencil           factor_u0_ref           ``_factor_u0_call``
+K4    factor_lower_stencil        factor_lower_ref        ``_factor_lower_``
+                                                          ``call``
+K8    plain_factor_sweep_stencil  plain_factor_sweep_ref  the plain sweep
+                                                          (XLA)
+====  ==========================  ======================  ===================
 
 A wrapper checks its operands and then dispatches on their device: a CPU
 tensor runs the twin, a CUDA tensor launches the kernel (building it at the
@@ -42,6 +49,7 @@ __all__ = [
     "tri_sweep_stencil", "tri_sweep_ref",
     "factor_u0_stencil", "factor_u0_ref",
     "factor_lower_stencil", "factor_lower_ref",
+    "PlainSweepPlan", "plain_factor_sweep_stencil", "plain_factor_sweep_ref",
     "factor_stencil_eligible", "factor_takes_compressed_route",
     "stencil_plan", "dia_factor_sweeps_stencil",
 ]
@@ -51,10 +59,12 @@ MAX_DIAGS = 128     # BT_MAX_DIAGS of csrc/stencil_common.cuh
 
 # ------------------------------------------------------------ operand checks
 
-def _check(name: str, offsets, vectors: dict, streams: dict) -> int:
-    """Validate one call's operands and return n.  ``vectors`` are (n,)
-    tensors, ``streams`` (len(offsets), n) tensors; all must share one
-    dtype (float32/float64), one device, and be contiguous."""
+def _check(name: str, offsets, vectors: dict, streams: dict,
+           n: int | None = None) -> int:
+    """Validate one call's operands and return n (the first vector's
+    length unless given).  ``vectors`` are (n,) tensors, ``streams``
+    (len(offsets), n) tensors; all must share one dtype (float32/float64),
+    one device, and be contiguous."""
     tensors = {**vectors, **streams}
     first = next(iter(tensors.values()))
     dtype, device = first.dtype, first.device
@@ -63,7 +73,8 @@ def _check(name: str, offsets, vectors: dict, streams: dict) -> int:
     if len(offsets) > MAX_DIAGS:
         raise ValueError(f"{name}: {len(offsets)} diagonals exceed "
                          f"{MAX_DIAGS}")
-    n = next(iter(vectors.values())).shape[0]
+    if n is None:
+        n = next(iter(vectors.values())).shape[0]
     for key, t in tensors.items():
         if t.dtype != dtype or t.device != device:
             raise TypeError(f"{name}: {key} is {t.dtype} on {t.device}, "
@@ -79,14 +90,17 @@ def _check(name: str, offsets, vectors: dict, streams: dict) -> int:
     return n
 
 
+def _dcode(dtype) -> int:
+    return 0 if dtype == torch.float32 else 1
+
+
 def _launch(name: str, entry: str, offsets, out: torch.Tensor, n: int,
             ptrs) -> None:
     """Launch on ``out``'s card (the operands' device, checked by
     ``_check``) with its dtype."""
     offs = (ctypes.c_longlong * max(1, len(offsets)))(*offsets)
-    dcode = 0 if out.dtype == torch.float32 else 1
-    _cuda.launch(name, entry, out.device, offs, len(offsets), dcode, *ptrs,
-                 n)
+    _cuda.launch(name, entry, out.device, offs, len(offsets),
+                 _dcode(out.dtype), *ptrs, n)
 
 
 def _ptr(t):
@@ -190,6 +204,118 @@ def factor_lower_stencil(lower_offsets, base_l, u0) -> torch.Tensor:
         out = torch.empty_like(base_l)
         _launch("factor_lower", "bt_factor_lower", lower_offsets, out, n,
                 (_ptr(base_l), _ptr(u0), _ptr(out)))
+    return out
+
+
+# --------------------------------------------- K8: plain factor sweep -----
+
+_PASS_THROUGH, _MASKED = 1, 2     # kPassThrough, kMasked of the kernel
+
+
+class PlainSweepPlan:
+    """The static structure of one plain Chow–Patel sweep on a (k, n) band,
+    built once per preconditioner or shard and read by every sweep: the
+    offsets, the pair lists ``pairs[d] = [(d_lower, d_upper, o1), ...]``,
+    the main diagonal's index, which diagonals pass through unchanged and
+    which re-mask, the (k, n) mask those read, and ``table``, the int64
+    table K8 reads on the band's device (the first pair of each diagonal,
+    the flags, then dl, du, o1 per pair; ``csrc/dia_stencil.cu``).
+
+    ``mask`` is a (k, n) bool tensor, every diagonal re-masked (the stacked
+    form, ``dia_factor_sweep``), or one (n,) bool tensor or ``None`` per
+    diagonal (the tuple form's ``mask_t``: ``None``, no re-mask).  With
+    ``prune`` the upper diagonals with no fill pairs pass through (the
+    tuple form)."""
+
+    def __init__(self, offsets, pairs, d0: int, mask, *, prune: bool,
+                 device):
+        k = len(offsets)
+        if k > MAX_DIAGS:
+            raise ValueError(f"plain_factor_sweep: {k} diagonals exceed "
+                             f"{MAX_DIAGS}")
+        self.offsets, self.d0 = tuple(offsets), d0
+        self.pairs = tuple(tuple(p) for p in pairs)
+        self.passthrough = tuple(prune and not pairs[d] and o > 0
+                                 for d, o in enumerate(offsets))
+        if isinstance(mask, torch.Tensor):
+            self.masked = tuple(not p for p in self.passthrough)
+            self.mask = mask if any(self.masked) else None
+        else:
+            self.masked = tuple(m is not None and not p
+                                for m, p in zip(mask, self.passthrough))
+            rows = [m for m, on in zip(mask, self.masked) if on]
+            self.mask = torch.stack([
+                m if on else torch.ones_like(rows[0])
+                for m, on in zip(mask, self.masked)]) if rows else None
+        flat = [x for d in range(k) if not self.passthrough[d]
+                for pair in self.pairs[d] for x in pair]
+        starts = [0]
+        for d in range(k):
+            starts.append(starts[-1] + (0 if self.passthrough[d]
+                                        else len(self.pairs[d])))
+        flags = [_PASS_THROUGH * p + _MASKED * m
+                 for p, m in zip(self.passthrough, self.masked)]
+        self.table = torch.tensor(starts + flags + flat, dtype=torch.int64,
+                                  device=device)
+
+
+def plain_factor_sweep_ref(plan: PlainSweepPlan, base: torch.Tensor,
+                           ilu: torch.Tensor) -> torch.Tensor:
+    """Twin of K8: one Chow–Patel sweep from ``ilu`` into a new (k, n)
+    tensor, per diagonal ``base[d] − Σ ilu[dl]·ilu[du][·+o1]``, divided by
+    ``guard(ilu[d0][·+o])`` below the diagonal, re-masked where the plan
+    says; a pass-through diagonal is ``ilu[d]``."""
+    udiag = ilu[plan.d0]
+    out = []
+    for d, o in enumerate(plan.offsets):
+        if plan.passthrough[d]:
+            out.append(ilu[d])
+            continue
+        s = base[d]
+        for (dl, du, o1) in plan.pairs[d]:
+            s = s - ilu[dl] * shift_read(ilu[du], o1)
+        if o < 0:
+            s = s / guard_zero(shift_read(udiag, o))
+        out.append(torch.where(plan.mask[d], s, 0.0) if plan.masked[d]
+                   else s)
+    return torch.stack(out)
+
+
+def plain_factor_sweep_stencil(plan: PlainSweepPlan, base: torch.Tensor,
+                               ilu: torch.Tensor) -> torch.Tensor:
+    """K8: one plain Chow–Patel sweep of the (k, n) iterate ``ilu`` over
+    the band values ``base`` with ``plan``'s structure, into a fresh (k, n)
+    tensor, so the output never aliases an operand (``base`` and ``ilu``
+    may be one tensor).
+    ``base`` and ``ilu`` have one dtype, float32 or float64, or this
+    raises: a factor stored in ``apply_dtype`` never reaches it
+    (``precond/dia_ilu0.py``)."""
+    k = len(plan.offsets)
+    if ilu.dim() != 2:
+        raise ValueError(f"plain_factor_sweep: ilu has shape "
+                         f"{tuple(ilu.shape)}, expected (k, n)")
+    n = ilu.shape[1]
+    _check("plain_factor_sweep", plan.offsets, {},
+           {"base": base, "ilu": ilu}, n)
+    tables = {"table": (plan.table, torch.int64, (plan.table.numel(),))}
+    if plan.mask is not None:
+        tables["mask"] = (plan.mask, torch.bool, (k, n))
+    for key, (t, dtype, shape) in tables.items():
+        if t.device != ilu.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"plain_factor_sweep: the plan's {key} is "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected contiguous {dtype} {shape} on "
+                             f"{ilu.device}")
+    if ilu.device.type == "cpu":
+        return plain_factor_sweep_ref(plan, base, ilu)
+    offs = (ctypes.c_longlong * k)(*plan.offsets)
+    with torch.cuda.device(ilu.device):
+        out = torch.empty_like(ilu)
+        _cuda.launch("plain_factor_sweep", "bt_plain_factor_sweep",
+                     ilu.device, offs, k, _dcode(ilu.dtype), plan.d0,
+                     plan.table.data_ptr(), base.data_ptr(), ilu.data_ptr(),
+                     _ptr(plan.mask), out.data_ptr(), n)
     return out
 
 

@@ -19,12 +19,16 @@ masked out, so set-up and apply run per shard with no communication.
   operations, as they are XLA work in JAX.
 - Scalar factor: plain ``dia_factor_sweep`` sweeps, as JAX runs on every
   backend here — never the compressed K3/K4 route, whose K sweeps equal 2K
-  plain ones (ROADMAP.md C1).
+  plain ones (ROADMAP.md C1).  Each sweep is kernel K8 over a pair table
+  built once per shard, at its first factor.
 - Block factor: compressed (K6, one launch per sweep) exactly when the
   band is ``factor_stencil_eligible`` and every diagonal block is stored —
   the port's device-independent rule, where JAX goes compressed only on a
   TPU; otherwise the plain block sweeps.  Inverse diagonal blocks come
   from the block-inverse kernel.
+- Block apply: the ILU(0) sweeps are kernel K7 (``ops/bdia.py``'s sweep
+  functions, shared with the single-device apply); the Jacobi, GS and SGS
+  forms are torch operations.
 
 Only ``none``, ``jacobi``, ``gs``, ``sgs`` and ``ilu0`` are banded types
 here.  JAX runs fixed-point ILU(0) sweeps for every other ``prec_type``
@@ -39,11 +43,19 @@ import numpy as np
 import torch
 
 from ..config import ApplyInit, AsyncSolverSettings, FactInit, PrecType
-from ..ops.bdia import cols_of, soa_dinv_mul, soa_mv_streams, stack_cols
+from ..ops.bdia import (
+    cols_of,
+    soa_dinv_mul,
+    soa_mv_streams,
+    soa_unit_lower_sweep,
+    soa_upper_solve_sweep,
+    stack_cols,
+)
 from ..ops.blas1 import guard_zero
 from ..ops.bstencil import bdia_block_inverse, bdia_spmv_stencil
 from ..ops.stencil import (
     MAX_DIAGS,
+    PlainSweepPlan,
     dia_spmv_stencil,
     factor_stencil_eligible,
     tri_sweep_stencil,
@@ -181,6 +193,7 @@ class DistDiaSolver:
         self.dtype = A.dtype
         self.data = _shard_cols(A.data, mesh, self.nl)
         self.mask = _shard_cols(A.mask, mesh, self.nl)
+        self._plans = {}     # K8's structure per shard, built at its first ILU
         self._compute()
 
     # -- preconditioner set-up (per shard, no communication) -----------------
@@ -196,7 +209,7 @@ class DistDiaSolver:
         pairs = dia_pairs(offsets)
         nsweeps = max(s.nbuildsweeps, 1)
         states, infos = [], []
-        for dl, ml in zip(self.data, self.mask):
+        for shard, (dl, ml) in enumerate(zip(self.data, self.mask)):
             mask_l = _local_masks(ml, offsets, nl)
             base = torch.where(mask_l, dl, 0.0)
             if t in (PrecType.JACOBI, PrecType.GS, PrecType.SGS):
@@ -209,8 +222,12 @@ class DistDiaSolver:
                     torch.where(mask_l[d], base[d]
                                 / guard_zero(shift_read(den, o)), 0.0)
                     if o < 0 else base[d] for d, o in enumerate(offsets)])
+            if shard not in self._plans:
+                self._plans[shard] = PlainSweepPlan(
+                    offsets, pairs, d0, mask_l, prune=False,
+                    device=base.device)
             for _ in range(nsweeps):
-                ilu = dia_factor_sweep(offsets, pairs, d0, mask_l, base, ilu)
+                ilu = dia_factor_sweep(self._plans[shard], base, ilu)
             states.append((ilu, 1.0 / guard_zero(ilu[d0])))
             if s.compute_precinfo:
                 infos.append(self._info_parts(pairs, d0, mask_l, base, ilu))
@@ -404,8 +421,9 @@ class DistBlockDiaSolver:
                              for (vl, di), rl in zip(self._state, r.parts))
 
     def _apply_local(self, vl, di, rl):
-        """One shard's apply on (bs, nl) column streams (torch operations,
-        as in JAX)."""
+        """One shard's apply on (bs, nl) column streams: the ILU(0) sweeps
+        are K7 (``ops/bdia.py``), the Jacobi, GS and SGS forms torch
+        operations, as in JAX."""
         s = self.settings
         t = s.prec_type
         offsets, bs = self.offsets, self.bs
@@ -437,10 +455,11 @@ class DistBlockDiaSolver:
         else:
             y = zero
             for _ in range(ns):
-                y = rc - tri_mv(lower, y)
+                y = soa_unit_lower_sweep(vl, offsets, lower, rc, y, bs)
             out = y if s.apply_init == ApplyInit.JACOBI else zero
             for _ in range(ns):
-                out = dmul(y - tri_mv(upper, out))
+                out = soa_upper_solve_sweep(vl, di, offsets, upper, y, out,
+                                            bs)
         return stack_cols(out).reshape(-1)
 
     def solve(self, b, x0=None, method: str = "bicgstab", tol: float = 1e-8,

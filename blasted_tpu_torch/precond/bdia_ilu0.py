@@ -23,8 +23,8 @@ from the problem and the options only: the compressed sweeps (kernel K6
 where every diagonal block is stored, else the torch u0-state chain with
 the same iterates) or the plain per-sweep chain (torch operations).  Block
 inverses (the JAX package's ``_soa_gj_inverse``) go through
-``bdia_block_inverse``; the apply sweeps are torch operations
-(``ops/bdia.py``).
+``bdia_block_inverse``; the apply sweeps are kernel K7 (``ops/bdia.py``),
+the level-scheduled (SEQUENTIAL) ones included.
 """
 
 from __future__ import annotations

@@ -16,7 +16,8 @@ and one factorization sweep is, per diagonal o,
 The factor takes one of two routes, chosen by
 :func:`~blasted_tpu_torch.ops.stencil.factor_takes_compressed_route` from
 the problem and the options only: the compressed sweeps (kernels K3 + K4)
-or the plain per-sweep chain (torch ops).  The apply sweeps are kernel K2
+or the plain per-sweep chain (kernel K8, one launch per sweep, over a pair
+table built once per preconditioner).  The apply sweeps are kernel K2
 when the stored factor has the vector's dtype; with ``apply_dtype`` (the
 factors stored in bfloat16, say) they are the plain shifted products, as in
 JAX (``ops/sweeps.py``).
@@ -32,8 +33,11 @@ import torch
 from ..config import SEQUENTIAL, ApplyInit, FactInit
 from ..ops.blas1 import guard_zero
 from ..ops.stencil import (
+    PlainSweepPlan,
     dia_factor_sweeps_stencil,
     factor_takes_compressed_route,
+    plain_factor_sweep_ref,
+    plain_factor_sweep_stencil,
 )
 from ..ops.sweeps import run_sweeps, unit_lower_sweep, upper_solve_sweep
 from ..sparse.dia import DiaMatrix, shift_read
@@ -47,7 +51,7 @@ from .levels import (
 )
 
 __all__ = ["DiaILU0Preconditioner", "dia_pairs", "dia_factor_sweep",
-           "dia_factor_sweep_tuple", "dia_ilu_remainder"]
+           "dia_ilu_remainder"]
 
 
 def dia_pairs(offsets):
@@ -79,39 +83,21 @@ def dia_ilu_remainder(offsets, pairs, mask, base, ilu) -> torch.Tensor:
     return total
 
 
-def dia_factor_sweep(offsets, pairs, d0, mask, base, ilu) -> torch.Tensor:
-    """One Chow–Patel fixed-point sweep on (k, n) DIA operands."""
-    udiag = ilu[d0]
-    rows = []
-    for d, o in enumerate(offsets):
-        s = base[d]
-        for (dl, du, o1) in pairs[d]:
-            s = s - ilu[dl] * shift_read(ilu[du], o1)
-        if o < 0:
-            s = s / guard_zero(shift_read(udiag, o))
-        rows.append(torch.where(mask[d], s, 0.0))
-    return torch.stack(rows)
+def dia_factor_sweep(plan: PlainSweepPlan, base, ilu) -> torch.Tensor:
+    """One Chow–Patel fixed-point sweep on (k, n) DIA operands with the
+    structure of ``plan``, built once by the caller: kernel K8.  The plan
+    holds either form of the JAX package's sweep: ``dia_factor_sweep``
+    (``prune=False`` and a (k, n) mask: every row re-masked) or
+    ``dia_factor_sweep_tuple`` (``prune=True`` and one mask row or ``None``
+    per diagonal: upper diagonals with no fill pairs are fixed points and
+    pass through, and a ``None`` row is not re-masked).
 
-
-def dia_factor_sweep_tuple(offsets, pairs, d0, mask_t, base_t,
-                           ilu_t) -> torch.Tensor:
-    """Dependency-pruned sweep: upper diagonals with no fill pairs are fixed
-    points (u_o = â_o at every sweep) and pass through untouched.
-    ``mask_t[d]`` is ``None`` where re-masking is provably unnecessary (the
-    mask is all true, or o<0 with a pre-masked base)."""
-    udiag = ilu_t[d0]
-    out = []
-    for d, o in enumerate(offsets):
-        if not pairs[d] and o > 0:
-            out.append(ilu_t[d])
-            continue
-        s = base_t[d]
-        for (dl, du, o1) in pairs[d]:
-            s = s - ilu_t[dl] * shift_read(ilu_t[du], o1)
-        if o < 0:
-            s = s / guard_zero(shift_read(udiag, o))
-        out.append(s if mask_t[d] is None else torch.where(mask_t[d], s, 0.0))
-    return torch.stack(out)
+    The twin runs instead of K8 where ``ilu`` is stored in another dtype
+    than ``base`` (a FactInit.NONE warm start from a factor kept in
+    ``apply_dtype``): fixed by the dtypes, as the applies' rule."""
+    if ilu.dtype != base.dtype:
+        return plain_factor_sweep_ref(plan, base, ilu)
+    return plain_factor_sweep_stencil(plan, base, ilu)
 
 
 class _DiaILUState(NamedTuple):
@@ -145,6 +131,7 @@ class DiaILU0Preconditioner(Preconditioner):
         # static structure, read from the device once
         self._mask_full = [bool(m) for m in mat.mask.all(dim=1).tolist()]
         self._levels = None
+        self._plan = None        # K8's pair table, built at the first sweep
 
     # -- helpers ------------------------------------------------------------
 
@@ -199,7 +186,10 @@ class DiaILU0Preconditioner(Preconditioner):
                        for d, o in enumerate(offsets))
 
         def sweep_t(v):
-            return dia_factor_sweep_tuple(offsets, pairs, d0, mask_t, base, v)
+            if self._plan is None:
+                self._plan = PlainSweepPlan(offsets, pairs, d0, mask_t,
+                                            prune=True, device=A.device)
+            return dia_factor_sweep(self._plan, base, v)
 
         info0 = self._nonlinear_res(base, ilu) if self.compute_precinfo \
             else None

@@ -5,15 +5,19 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``blasted_tpu_torch/csrc`` (K1-K4 of the
-scalar banded path, K5, K6 and the block inverse of the point-block path)
-and checks each against its plain PyTorch twin on the card: K1-K4 at the
-shapes of the scalar main path (the npts=162 band in float32) and at npts=48
-in float64; K5, both modes of K6 and the block inverse at bs=4 on the g=128
-block band in float32 (the block main path's shapes), at bs=5, g=96 in
-float32 and at bs=4, g=24 in float64.  At the main-path shapes it times
-each kernel, its twin and, where one PyTorch call computes the same
-function, that call.  ``[bench]`` then runs every section of the port's
+It builds the CUDA kernels from ``blasted_tpu_torch/csrc`` (K1-K4 and the
+plain factor sweep K8 of the scalar banded path; K5, K6, the block inverse
+and the apply sweep K7 of the point-block path) and checks each against its
+plain PyTorch twin on the card: K1-K4 and K8 at the shapes of the scalar
+main path (the npts=162 band in float32; K8 in its tuple form, which
+[main] runs, and its stacked form, which the distributed factor runs) and
+at npts=48 in float64; K5, both modes of K6, the block inverse and both
+modes of K7 at bs=4 on the g=128 block band in float32 (the block main
+path's shapes), at bs=5, g=96 in float32 and at bs=4, g=24 in float64.  At
+the main-path shapes it times each kernel, its twin and, where one PyTorch
+call computes the same function, that call (K7's lower mode:
+``torch.addmv`` on the sparse form of L; none for K6, K7's upper mode and
+K8, the kernels line says why).  ``[bench]`` then runs every section of the port's
 roofline bench (``blasted_tpu_torch/bench/roofline.py``) cut in size
 (``BENCH_SMOKE``: scalar g=240, bs=4 at g=96, bs=5 at g=80, each past
 4× the L2, the padded CSR at g=64, the solve at npts=66; 14 chained
@@ -24,15 +28,17 @@ in (0, 1.05] and the bench's JSON line must parse.  It then drives both main pat
 ``blasted_tpu_torch.api.solve`` on the default device:
 
 - scalar: the 160³ Poisson system in float32, ILU(0) 8,4 (bench.py's
-  factor: below JAX's halo gate the factor route is plain, so no K3/K4)
-  and BiCGSTAB; ``[mixed]`` the same with ``-blasted_apply_dtype bfloat16``
+  factor: below JAX's halo gate the factor route is plain, so K8 eight
+  times and no K3/K4) and BiCGSTAB; ``[mixed]`` the same with ``-blasted_apply_dtype bfloat16``
   (the apply's plain shifted products, no K2); ``[main-compressed]`` the
   288³ band built on the card, past JAX's gate in float32, through
   ``setup_local_preconditioner``, ``compute_preconditioner`` (K3 four
   times, K4 once at ILU(0) 4,4) and BiCGSTAB;
 - block: a random bs=4 block system on the 7-point band of a 128³ block
-  grid (nb = 2,097,152, n = 8,388,608) in float32, block ILU(0) 4,4 and
-  BiCGSTAB;
+  grid (nb = 2,097,152, n = 8,388,608) in float32, block ILU(0) 4,4 (K6
+  factor, K7 apply: four sweeps of each mode per apply) and BiCGSTAB; then
+  the same with ``-blasted_apply_dtype bfloat16`` ([block-mixed]: the
+  apply's dtype rule, the twin's products and no K7);
 
 checks each true residual and that each solve launched its own kernels and
 none of the other path's, re-factors and re-solves for steady-state times,
@@ -87,14 +93,14 @@ float64 on the host) to 1e-10.
 
 Then the distributed solvers (``blasted_tpu_torch.parallel``), on four
 subdomains of the one card (``make_mesh(devices=["cuda:0"] * 4)``), which
-add no kernel: the banded ones launch K1/K2 or K5/K6/the inverse once per
-shard.  ``[dist-block-main]`` solves the [block-main] system over four
+add no kernel: the banded ones launch K1/K2/K8 or K5/K6/K7/the inverse
+once per shard.  ``[dist-block-main]`` solves the [block-main] system over four
 shards (the compressed block factor: K6 and two inverses per shard, K5
 once per shard per SpMV); ``[dist-main]`` the [krylov-main] system with
 ILU(0) 4,4 over four shards and over one (K1 once per shard per SpMV, K2
-eight times per shard per apply, no K3/K4), with steady factor and solve
-times; ``[dist-modes]`` the six modes of the distributed dry run
-(``parallel/dryrun.py``), the banded ones at full width and the others
+eight times per shard per apply, K8 four times per shard per factor, no
+K3/K4), with steady factor and solve times; ``[dist-modes]`` the six
+modes of the distributed dry run (``parallel/dryrun.py``), the banded ones at full width and the others
 cut (the reasons printed), each asserting its route and its kernels, and
 one distributed AMG cycle under [tf32]; ``[dist-device-independence]``
 each mode, each banded pc_type and one R3 type (sai, the general route)
@@ -112,8 +118,9 @@ distributed path across the cards, one shard per card of ``make_mesh()``
 ``[mc-topology]`` (``nvidia-smi topo -m``, peer access of every pair, the
 device time of one halo-sized copy, 25,600 f32, and of one 0-d copy from
 cuda:3 to cuda:0); ``[mc-kernel]`` every kernel on every card at the f32
-shapes of ``[kernel]``, cut to those (K3/K4 at 160³, not also 288³; no
-f64 or bs = 5 checks: they show nothing a card adds), held bitwise to its
+shapes of ``[kernel]`` (K7 and K8 included), cut to those (K3/K4 at
+160³, not also 288³; no f64 or bs = 5 checks: they show nothing a card
+adds), held bitwise to its
 twin and counted on that card only, timed on each card (its twin and
 library call on the first only), then one call on cuda:2 operands with
 cuda:0 current (counted on card 2) and calls across two cards (must
@@ -130,7 +137,8 @@ a (2, 2) mesh, and over four shards of cuda:0.  None of the one-card
 phases runs: they show nothing a second card adds, and four cards cost
 four times the chip time.  It ends with the kernels line (launches of the
 four-card solves of [mc-dist-main], [mc-dist-block-main] and [mc-weak],
-in all and by card; K3/K4 none, the distributed scalar factor is plain),
+in all and by card; K3/K4 none: the distributed scalar factor is K8's
+plain sweeps),
 one ``nvidia-smi`` line per card and the last line.  With fewer than four
 cards it exits with code 2 before any phase.
 
@@ -198,7 +206,7 @@ from blasted_tpu_torch.sparse.bdia import shift_last
 from blasted_tpu_torch.sparse.dia import shift_read
 
 # the TPU kernel each one replaces: file:line of its pallas_call (the block
-# inverse: the elimination XLA ran outside the kernels)
+# inverse, K7 and K8: the JAX functions XLA runs, with no pallas_call)
 REPLACES = {
     "dia_spmv": "blasted_tpu/ops/stencil.py:221",
     "tri_sweep": "blasted_tpu/ops/stencil.py:295",
@@ -208,6 +216,21 @@ REPLACES = {
     "bfactor_dinv": "blasted_tpu/ops/bstencil.py:448",
     "bfactor_u0": "blasted_tpu/ops/bstencil.py:448",
     "block_inverse": "blasted_tpu/ops/bstencil.py:284",
+    "bdia_lower_sweep": "blasted_tpu/ops/bdia.py:66",
+    "bdia_upper_sweep": "blasted_tpu/ops/bdia.py:73",
+    "plain_factor_sweep": "blasted_tpu/precond/dia_ilu0.py:75",
+}
+# why a kernel has no library yardstick (``library_ms`` null)
+NO_LIBRARY = {
+    "factor_u0": "no PyTorch call computes a compressed Chow-Patel sweep",
+    "factor_lower": "no PyTorch call computes a guarded shifted division",
+    "bfactor_dinv": "no PyTorch call computes a block Chow-Patel sweep",
+    "bfactor_u0": "no PyTorch call computes a block Chow-Patel sweep",
+    "bdia_upper_sweep": "dinv·(y − U z) is two products: torch.addmv "
+                        "computes only y − U z",
+    "plain_factor_sweep": "no PyTorch call computes a Chow-Patel sweep "
+                          "(shifted products, a guarded division, a "
+                          "re-mask)",
 }
 # max |kernel − twin| / max |twin|: the kernels are built to round as their
 # twins do, so these bounds only allow for a different summation order
@@ -241,8 +264,9 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 KRYLOV_RTOL = 1e-5
 KRYLOV_RELRES = 1.1 * KRYLOV_RTOL
 X_REF_SEED = 17
-# ILU(0) on the 160³ band: K1 and K2; its factor is plain (R4)
-ILU_KERNELS = {"dia_spmv": None, "tri_sweep": None}
+# ILU(0) 4,4 on the 160³ band: K1 and K2; its factor is plain (R4): K8
+# once per sweep
+ILU_KERNELS = {"dia_spmv": None, "tri_sweep": None, "plain_factor_sweep": 4}
 # [krylov-main]: (label, options, kernels the solve must launch)
 KRYLOV_CASES = [
     ("gmres+ilu0", {"ksp_type": "gmres", "restart": 30,
@@ -361,11 +385,22 @@ def band_operands(g: int, dtype, device, seed: int):
     u0 = data[3].clone()
     u0[::997] = 0.0
     lower_offs = offsets[:3]
+    # K8's iterate: the band with u0 on the diagonal; its plans in the
+    # tuple form [main] runs (pair-free uppers pass through, no re-mask)
+    # and the stacked form of the distributed factor (every row re-masked)
+    ilu = data.clone()
+    ilu[3] = u0
+    pairs = dia_pairs(offsets)
     return {
         "offsets": offsets, "mask": mask, "data": data, "x": randn(n),
         "y": randn(n), "rhs": randn(n), "dinv": 1.0 / data[3], "u0": u0,
         "lower_offs": lower_offs, "base_l": data[:3].contiguous(),
-        "ubs": torch.stack([data[6 - j] for j in range(3)]),
+        "ubs": torch.stack([data[6 - j] for j in range(3)]), "ilu": ilu,
+        "plan_tuple": stencil.PlainSweepPlan(
+            offsets, pairs, 3, [None] * 4 + list(mask[4:]), prune=True,
+            device=device),
+        "plan_stacked": stencil.PlainSweepPlan(
+            offsets, pairs, 3, mask, prune=False, device=device),
     }
 
 
@@ -376,7 +411,8 @@ def block_operands(g: int, bs: int, dtype, device, seed: int):
     a few all-zero diagonal blocks (zero pivots, the guard) and a diagonal
     mask with a few false rows (identity blocks) for the block inverse.
     K6 reads the three pair lowers, their uppers pre-shifted by the pair
-    offset, and the inverse of the diagonal."""
+    offset, and the inverse of the diagonal; K7 the band's lower and upper
+    blocks, that inverse and two (bs, nb) column streams."""
     nb, b2 = g ** 3, bs * bs
     offsets, mask = band_mask(g, device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -393,6 +429,7 @@ def block_operands(g: int, bs: int, dtype, device, seed: int):
     return {
         "offsets": offsets, "mask": mask, "data": data,
         "x": randn(nb, bs), "u0": u0, "dmask": dmask,
+        "z_cols": randn(bs, nb), "y_cols": randn(bs, nb),
         "pair_offs": offsets[:3], "base0": data[3], "base_l": data[:3],
         "ubs": torch.stack([shift_last(data[6 - p], offsets[p])
                             for p in range(3)]),
@@ -413,17 +450,19 @@ def csr_of_band(offsets, data, mask, lower_only=False):
                                    data[sel][ds, rows], size=(m.shape[0],) * 2)
 
 
-def bsr_of_band(offsets, data, mask):
+def bsr_of_band(offsets, data, mask, lower_only=False):
     """The block band as a CUDA sparse BSR tensor (blocksize bs) of the
-    structural blocks of ``data`` (k, bs², nb)."""
+    structural blocks of ``data`` (k, bs², nb); with ``lower_only`` its
+    strictly lower blocks."""
     k, b2, nb = data.shape
     bs = int(round(b2 ** 0.5))
-    m = mask.t()
+    sel = [d for d, o in enumerate(offsets) if o < 0 or not lower_only]
+    m = mask[sel].t()
     rows, ds = m.nonzero(as_tuple=True)
     crow = torch.zeros(nb + 1, dtype=torch.int64, device=data.device)
     crow[1:] = torch.cumsum(m.sum(1), 0)
-    cols = rows + torch.tensor(offsets, device=data.device)[ds]
-    vals = data[ds, :, rows].reshape(-1, bs, bs)
+    cols = rows + torch.tensor(offsets, device=data.device)[sel][ds]
+    vals = data[sel][ds, :, rows].reshape(-1, bs, bs)
     return torch.sparse_bsr_tensor(crow, cols, vals, size=(nb * bs,) * 2)
 
 
@@ -453,6 +492,14 @@ def kernel_cases(op):
                                                  op["u0"]),
             lambda: stencil.factor_lower_ref(op["lower_offs"], op["base_l"],
                                              op["u0"]))],
+        # K8 in the distributed factor's stacked form, then (timed) in the
+        # tuple form [main] runs
+        "plain_factor_sweep": [
+            (lambda p=op[plan]: stencil.plain_factor_sweep_stencil(
+                p, data, op["ilu"]),
+             lambda p=op[plan]: stencil.plain_factor_sweep_ref(
+                 p, data, op["ilu"]))
+            for plan in ("plan_stacked", "plan_tuple")],
     }
 
 
@@ -461,6 +508,7 @@ def block_kernel_cases(op):
     inverse."""
     offs, data, po = op["offsets"], op["data"], op["pair_offs"]
     fac = (po, op["base0"], op["base_l"], op["ubs"], op["dinv"])
+    lo, up, z, y = [0, 1, 2], [4, 5, 6], op["z_cols"], op["y_cols"]
     return {
         "bspmv": [(lambda: bstencil.bdia_spmv_stencil(offs, data, op["x"]),
                    lambda: bstencil.bdia_spmv_ref(offs, data, op["x"]))],
@@ -475,6 +523,23 @@ def block_kernel_cases(op):
              lambda: bstencil.block_inverse_ref(op["u0"], op["dmask"])),
             (lambda: bstencil.bdia_block_inverse(op["base0"], op["mask"][3]),
              lambda: bstencil.block_inverse_ref(op["base0"], op["mask"][3]))],
+        # K7 (timed on the last case): the lower mode also over no
+        # diagonal (z − 0), the upper mode also with y and z one tensor, as
+        # the bench's chained pair calls it
+        "bdia_lower_sweep": [
+            (lambda: bstencil.bdia_lower_sweep_stencil(data, offs, [], z, y),
+             lambda: bstencil.bdia_lower_sweep_ref(data, offs, [], z, y)),
+            (lambda: bstencil.bdia_lower_sweep_stencil(data, offs, lo, z, y),
+             lambda: bstencil.bdia_lower_sweep_ref(data, offs, lo, z, y))],
+        "bdia_upper_sweep": [
+            (lambda: bstencil.bdia_upper_sweep_stencil(data, op["dinv"], offs,
+                                                       up, y, y),
+             lambda: bstencil.bdia_upper_sweep_ref(data, op["dinv"], offs, up,
+                                                   y, y)),
+            (lambda: bstencil.bdia_upper_sweep_stencil(data, op["dinv"], offs,
+                                                       up, y, z),
+             lambda: bstencil.bdia_upper_sweep_ref(data, op["dinv"], offs, up,
+                                                   y, z))],
     }
 
 
@@ -535,13 +600,16 @@ def compare(name: str, label: str, cases, dtype) -> dict:
     return {"max_abs_err": err, "rel_err": rel}
 
 
-def timed(rec: dict, kernel, twin, nbytes: float, flops: float, dtype,
-          library=None) -> None:
+def timed(rec: dict, name: str, kernel, twin, nbytes: float, flops: float,
+          dtype, library=None) -> None:
     """Add the kernel's, the twin's and the library call's device times and
-    the kernel's bound to ``rec``."""
+    the kernel's bound to ``rec`` (with the reason where ``name`` has no
+    library call)."""
     rec["ms"], rec["host_ms"] = cuda_ms(kernel)
     rec["plain_ms"], rec["plain_host_ms"] = cuda_ms(twin)
     rec["library_ms"] = None if library is None else cuda_ms(library)[0]
+    if library is None and name in NO_LIBRARY:
+        rec["library_of"] = f"none: {NO_LIBRARY[name]}"
     rec.update(bound(nbytes, flops, dtype))
     rec["gbps"] = nbytes / 1e9 / (rec["ms"] / 1e3)
     rec["hbm_share"] = rec["gbps"] / HBM_GBPS
@@ -552,10 +620,14 @@ def scalar_work(name: str, n: int, isz: int) -> tuple:
     """(bytes, operations) of one timed call of a scalar kernel: the least
     traffic in (n,) streams — K1 7 diagonals + x + y; K2's upper sweep 3
     diagonals + rhs + dinv + y + out; K3 base0 + 3 lowers + 3 pre-shifted
-    uppers + u0 + out; K4 3 lowers + u0 + 3 outputs — and its operations
-    per row."""
+    uppers + u0 + out; K4 3 lowers + u0 + 3 outputs; K8's tuple form the
+    base of the 3 lowers and the diagonal, the 7 rows of the iterate and
+    the 7 rows of its fresh output (the 3 pair-free uppers copied through,
+    as the twin's stack writes them) — and its operations per row (K8: the
+    diagonal's 3 pair products and subtractions, the 3 lowers' divisions)."""
     streams, flops = {"dia_spmv": (9, 2 * 7), "tri_sweep": (7, 2 * 3 + 1),
-                      "factor_u0": (9, 3 * 3), "factor_lower": (7, 3)}[name]
+                      "factor_u0": (9, 3 * 3), "factor_lower": (7, 3),
+                      "plain_factor_sweep": (18, 2 * 3 + 3)}[name]
     return streams * n * isz, flops * n
 
 
@@ -563,7 +635,14 @@ def block_work(name: str, nb: int, bs: int, npair: int, isz: int) -> tuple:
     """(bytes, operations) of one timed call of K5, K6 or the inverse."""
     b2 = bs * bs
     contraction = npair * (2 * b2 * (2 * bs - 1) + b2)
+    sweep = (3 * b2 + 3 * bs) * nb * isz, (2 * 3 * b2 + bs) * nb
     return {
+        # K7 on the 7-point band's 3 lower (3 upper) blocks: the blocks,
+        # the two column streams read and the one written; the upper mode
+        # also reads the inverse diagonal and multiplies by it
+        "bdia_lower_sweep": sweep,
+        "bdia_upper_sweep": (sweep[0] + b2 * nb * isz,
+                             sweep[1] + (2 * b2 - bs) * nb),
         "bspmv": ((7 * b2 + 2 * bs) * nb * isz, 2 * 7 * b2 * nb),
         "bfactor_dinv": ((b2 * (1 + 2 * npair) + 2 * b2) * nb * isz,
                          (contraction + gj_flops(bs)) * nb),
@@ -596,9 +675,10 @@ def lower_timed(rec: dict, op, lower_kernel, n: int, dtype) -> None:
 
 
 def block_library_of(name: str, op):
-    """The one PyTorch call computing K5's or the inverse's function, else
-    None."""
-    make = {"bspmv": block_library, "block_inverse": inverse_library}.get(name)
+    """The one PyTorch call computing K5's, the inverse's or K7's lower
+    mode's function, else None."""
+    make = {"bspmv": block_library, "block_inverse": inverse_library,
+            "bdia_lower_sweep": lower_block_library}.get(name)
     return make and make(op)
 
 
@@ -614,7 +694,7 @@ def check_kernels(g: int, dtype, seed: int, timed_names=()) -> dict:
         rec["shape"] = f"g={g} n={n} {str(dtype)[6:]}"
         if name in timed_names:
             kernel, twin = cases[-1]
-            timed(rec, kernel, twin, *scalar_work(name, n, isz), dtype,
+            timed(rec, name, kernel, twin, *scalar_work(name, n, isz), dtype,
                   scalar_library(name, op))
             if name == "tri_sweep":
                 lower_timed(rec, op, cases[0][0], n, dtype)
@@ -637,8 +717,9 @@ def check_block_kernels(g: int, bs: int, dtype, seed: int,
         rec["shape"] = f"bs={bs} g={g} nb={nb} {str(dtype)[6:]}"
         if timed_run:
             kernel, twin = cases[-1]
-            timed(rec, kernel, twin, *block_work(name, nb, bs, npair, isz),
-                  dtype, block_library_of(name, op))
+            timed(rec, name, kernel, twin,
+                  *block_work(name, nb, bs, npair, isz), dtype,
+                  block_library_of(name, op))
         out[name] = rec
         print(f"[kernel] {name} bs={bs} g={g} nb={nb} {str(dtype)[6:]}: "
               + " ".join(f"{k}={v}" for k, v in rec.items()), flush=True)
@@ -666,6 +747,35 @@ def block_library(op):
     print(f"[library] bspmv yardstick: torch.mv on a CUDA {form} tensor, "
           f"relative difference to the twin {rel}", flush=True)
     return lambda: torch.mv(A, xf)
+
+
+def lower_block_library(op):
+    """One PyTorch call computing K7's lower mode, ``z − L y``:
+    ``torch.addmv`` with the CUDA BSR tensor of the band's strictly lower
+    blocks on the flat (nb·bs,) forms of z and y, or, where this torch
+    refuses BSR there, its CSR form (said on a line of its own)."""
+    L = bsr_of_band(op["offsets"], op["data"], op["mask"], lower_only=True)
+    zf = op["z_cols"].t().contiguous().reshape(-1)
+    yf = op["y_cols"].t().contiguous().reshape(-1)
+    want = bstencil.bdia_lower_sweep_ref(op["data"], op["offsets"], [0, 1, 2],
+                                         op["z_cols"], op["y_cols"])
+    try:
+        got = torch.addmv(zf, L, yf, alpha=-1)
+        form = "bsr"
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"[library] torch.addmv on a CUDA BSR tensor: {exc}; timing "
+              "the CSR form", flush=True)
+        L = L.to_sparse_csr()
+        got = torch.addmv(zf, L, yf, alpha=-1)
+        form = "csr"
+    rel = float((got.reshape(-1, want.shape[0]).t() - want).abs().max()
+                / want.abs().max())
+    print(f"[library] bdia_lower_sweep yardstick: torch.addmv on a CUDA "
+          f"{form} tensor of L, relative difference to the twin {rel}",
+          flush=True)
+    if rel > 1e-4:
+        fail(f"torch.addmv differs from K7's lower twin by {rel}")
+    return lambda: torch.addmv(zf, L, yf, alpha=-1)
 
 
 def inverse_library(op):
@@ -828,30 +938,53 @@ def main_path():
     A, b = A.astype(np.float32), b.astype(np.float32)
     t_host = time.perf_counter() - t0
     rec, _ = run_main("main", A, b, t_host, {"n": A.nrows, "nnz": A.nnz})
-    # the plain factor route below JAX's gate (R4): no K3/K4
+    # the plain factor route below JAX's gate (R4): K8 once per sweep, no
+    # K3/K4
+    nbuild = int(MAIN_OPTS["blasted_async_sweeps"].split(",")[0])
     expect_launches("main", rec["launches"],
-                    {"dia_spmv": 2 * rec["iters"] + 1, "tri_sweep": None})
+                    {"dia_spmv": 2 * rec["iters"] + 1, "tri_sweep": None,
+                     "plain_factor_sweep": nbuild})
     return rec["launches"], rec, A, b
 
 
 def block_main_path():
     """The bench's block size on the g=128 block band through the user
-    entry point; returns the kernel launches it made and the host
-    system."""
+    entry point, in float32 and with bfloat16 factors ([block-mixed]);
+    returns the kernel launches they made and the host system."""
     t0 = time.perf_counter()
     B, b = block_system(BLOCK_G, BLOCK_BS, np.float32, seed=7)
     t_host = time.perf_counter() - t0
     rec, _ = run_main("block-main", B, b, t_host,
                       {"bs": B.bs, "nb": B.nbrows, "n": B.nrows,
                        "nnzb": B.nnzb}, ILU44_OPTS)
-    nbuild = int(ILU44_OPTS["blasted_async_sweeps"].split(",")[0])
+    nbuild, napply = map(int, ILU44_OPTS["blasted_async_sweeps"].split(","))
     # K6: nbuild − 1 Dinv-emitting sweeps and one U0-emitting sweep; the
-    # block inverse before the sweeps and for the apply's diagonal
+    # block inverse before the sweeps and for the apply's diagonal; K7:
+    # napply sweeps of each mode per apply, two applies per iteration
+    factor = {"bfactor_dinv": nbuild - 1, "bfactor_u0": 1,
+              "block_inverse": None}
+    it = rec["iters"]
     expect_launches("block-main", rec["launches"],
-                    {"bspmv": 2 * rec["iters"] + 1,
-                     "bfactor_dinv": nbuild - 1, "bfactor_u0": 1,
-                     "block_inverse": None})
-    return rec["launches"], B, b
+                    {"bspmv": 2 * it + 1, **factor,
+                     "bdia_lower_sweep": 2 * napply * it,
+                     "bdia_upper_sweep": 2 * napply * it})
+    # [block-mixed]: the factors stored in bfloat16, so the apply takes
+    # the twin's products (the dtype rule of soa_*_sweep): no K7
+    mrec, ctx = run_main("block-mixed", B, b, 0.0,
+                         {"bs": B.bs, "host_system": "reused"},
+                         dict(ILU44_OPTS, blasted_apply_dtype="bfloat16"))
+    if ctx.prec.state.ilu.dtype != torch.bfloat16:
+        fail(f"block-mixed: the factor is stored in {ctx.prec.state.ilu.dtype}")
+    del ctx
+    expect_launches("block-mixed", mrec["launches"],
+                    {"bspmv": 2 * mrec["iters"] + 1, **factor})
+    print("[block-mixed] " + json.dumps({
+        "iters_mixed_vs_f32": [mrec["iters"], it],
+        "solve_ms_steady_mixed_vs_f32": [1e3 * mrec["solve_s"],
+                                         1e3 * rec["solve_s"]]}), flush=True)
+    torch.cuda.empty_cache()
+    launches = {k: v + mrec["launches"][k] for k, v in rec["launches"].items()}
+    return launches, B, b
 
 
 def device_independence(label: str, A, b, opts=None, case: str = "",
@@ -1062,10 +1195,11 @@ def padded_device_independence() -> None:
 def check_all_kernels() -> dict:
     """Every kernel against its twin at each checked shape; the timed
     records of the main paths' shapes."""
-    # K1/K2 timed at [main]'s 160³; K3/K4, which only [main-compressed]
-    # launches, at its 288³ (checked at 160³ as well)
+    # K1/K2 and K8 timed at [main]'s 160³; K3/K4, which only
+    # [main-compressed] launches, at its 288³ (checked at 160³ as well)
     shapes = check_kernels(MAIN_NPTS - 2, torch.float32, 1,
-                           timed_names=("dia_spmv", "tri_sweep"))
+                           timed_names=("dia_spmv", "tri_sweep",
+                                        "plain_factor_sweep"))
     err = {k: v["max_abs_err"] for k, v in shapes.items()}
     big = check_kernels(COMPRESSED_G, torch.float32, 6,
                         timed_names=("factor_u0", "factor_lower"))
@@ -1402,9 +1536,11 @@ def shard_twins(label: str, ds, s: int, seed: int) -> None:
     there, on shard ``s``'s own band and state, against its twin on the
     same card tensors, bitwise.  Scalar: K1 on the shard's data, K2 as the
     ILU(0) unit-lower and upper (with dinv) sweeps and the SGS lower sweep
-    (lower diagonals with dinv).  Block: K5, K6 in its Dinv and U0 modes on
-    the first factor sweep's operands, and the block inverse of the
-    shard's factored diagonal."""
+    (lower diagonals with dinv), K8 (the stacked form, every row re-masked)
+    from the shard's factor over its masked band.  Block: K5, K6 in its
+    Dinv and U0 modes on the first factor sweep's operands, the block
+    inverse of the shard's factored diagonal, and K7 in both modes on the
+    shard's factor and inverse diagonal."""
     data, nl, offs = ds.data[s], ds.nl, ds.offsets
     d0 = offs.index(0)
     vl, di = ds._state[s]
@@ -1419,6 +1555,9 @@ def shard_twins(label: str, ds, s: int, seed: int) -> None:
                         for d, o in enumerate(offs)])
     if isinstance(ds, DistBlockDiaSolver):
         x = randn(nl, ds.bs)
+        zc, yc = randn(ds.bs, nl), randn(ds.bs, nl)
+        lo = [d for d, o in enumerate(offs) if o < 0]
+        up = [d for d, o in enumerate(offs) if o > 0]
         base = torch.where(mask[:, None], data, 0.0)
         key = dia_pairs(offs)[d0]
         fac = (tuple(o1 for _, _, o1 in key), base[d0],
@@ -1434,10 +1573,22 @@ def shard_twins(label: str, ds, s: int, seed: int) -> None:
                             lambda: bstencil.bdia_factor_ref(*fac, False))],
             "block_inverse": [
                 (lambda: bstencil.bdia_block_inverse(vl[d0], mask[d0]),
-                 lambda: bstencil.block_inverse_ref(vl[d0], mask[d0]))]}
+                 lambda: bstencil.block_inverse_ref(vl[d0], mask[d0]))],
+            "bdia_lower_sweep": [
+                (lambda: bstencil.bdia_lower_sweep_stencil(vl, offs, lo, zc,
+                                                           yc),
+                 lambda: bstencil.bdia_lower_sweep_ref(vl, offs, lo, zc, yc))],
+            "bdia_upper_sweep": [
+                (lambda: bstencil.bdia_upper_sweep_stencil(vl, di, offs, up,
+                                                           yc, zc),
+                 lambda: bstencil.bdia_upper_sweep_ref(vl, di, offs, up, yc,
+                                                       zc))]}
     else:
         x, y, rhs = randn(nl), randn(nl), randn(nl)
         lo, up = offs[:d0], offs[d0 + 1:]
+        base = torch.where(mask, data, 0.0)
+        plan = stencil.PlainSweepPlan(offs, dia_pairs(offs), d0, mask,
+                                      prune=False, device=data.device)
         cases = {
             "dia_spmv": [(lambda: stencil.dia_spmv_stencil(offs, data, x),
                           lambda: stencil.dia_spmv_ref(offs, data, x))],
@@ -1448,7 +1599,10 @@ def shard_twins(label: str, ds, s: int, seed: int) -> None:
                                                    di),
                  lambda: stencil.tri_sweep_ref(up, vl[d0 + 1:], rhs, y, di)),
                 (lambda: stencil.tri_sweep_stencil(lo, vl[:d0], rhs, y, di),
-                 lambda: stencil.tri_sweep_ref(lo, vl[:d0], rhs, y, di))]}
+                 lambda: stencil.tri_sweep_ref(lo, vl[:d0], rhs, y, di))],
+            "plain_factor_sweep": [
+                (lambda: stencil.plain_factor_sweep_stencil(plan, base, vl),
+                 lambda: stencil.plain_factor_sweep_ref(plan, base, vl))]}
     errs = {}
     for name, pairs in cases.items():
         for kernel, twin in pairs:
@@ -1534,11 +1688,12 @@ def dist_main(A, b) -> dict:
     ``solve(..., mesh=make_mesh(devices=["cuda:0"] * 4))`` with ILU(0) 4,4
     and BiCGSTAB at rtol 1e-5: the banded distributed route, the true
     residual within 1.1·rtol, K1 once per shard per SpMV (the interior
-    pass), K2 8 times per shard per apply (4 + 4 sweeps), no K3/K4 (the
-    scalar distributed factor is plain sweeps, as in JAX); then the same
-    solve on a one-shard mesh.  Returns the launches of both solves."""
+    pass), K2 8 times per shard per apply (4 + 4 sweeps), K8 4 times per
+    shard (the scalar distributed factor is plain sweeps, as in JAX), no
+    K3/K4; then the same solve on a one-shard mesh.  Returns the launches
+    of both solves."""
     opts = dict(ILU44_OPTS, rtol=KRYLOV_RTOL)
-    nsw = int(opts["blasted_async_sweeps"].split(",")[1])
+    nbuild, nsw = map(int, opts["blasted_async_sweeps"].split(","))
     total = dict.fromkeys(_cuda.launches, 0)
     recs = {}
     for nshards in (DIST_SHARDS, 1):
@@ -1549,7 +1704,8 @@ def dist_main(A, b) -> dict:
         it = rec["iters"]
         expect_launches(f"dist-main {nshards}", rec["launches"],
                         {"dia_spmv": nshards * (2 * it + 1),
-                         "tri_sweep": nshards * 2 * nsw * 2 * it})
+                         "tri_sweep": nshards * 2 * nsw * 2 * it,
+                         "plain_factor_sweep": nshards * nbuild})
         for k, v in rec["launches"].items():
             total[k] += v
         recs[nshards] = rec
@@ -1569,27 +1725,34 @@ def dist_block_main(B, bb) -> dict:
     """[dist-block-main]: the [block-main] system (bs = 4, 128³ blocks,
     f32) over four shards: the banded block route on the compressed factor
     (K6: nbuild − 1 Dinv and one U0 sweep per shard, two block inverses per
-    shard), K5 once per shard per SpMV.  Returns its launches."""
+    shard), K5 once per shard per SpMV, K7's two modes napply times each
+    per shard per apply.  Returns its launches."""
     rec, ds, _ = dist_run("dist-block-main", B, bb, ILU44_OPTS,
                           card_mesh(DIST_SHARDS), MAIN_RELRES)
     if rec["route"] != "DistBlockDiaSolver" or not ds.compressed:
         fail(f"dist-block-main: took {rec['route']}, compressed "
              f"{getattr(ds, 'compressed', None)}")
-    nbuild = int(ILU44_OPTS["blasted_async_sweeps"].split(",")[0])
+    nbuild, napply = map(int, ILU44_OPTS["blasted_async_sweeps"].split(","))
     P, it = DIST_SHARDS, rec["iters"]
     expect_launches("dist-block-main", rec["launches"],
                     {"bspmv": P * (2 * it + 1), "bfactor_dinv": P * (nbuild - 1),
-                     "bfactor_u0": P, "block_inverse": 2 * P})
+                     "bfactor_u0": P, "block_inverse": 2 * P,
+                     "bdia_lower_sweep": P * 2 * napply * it,
+                     "bdia_upper_sweep": P * 2 * napply * it})
     shard_twins("dist-block-main", ds, 0, seed=32)
     del ds
     torch.cuda.empty_cache()
     return rec["launches"]
 
 
-MODE_KERNELS = {"banded-dia": {"dia_spmv": None, "tri_sweep": None},
-                "mesh-2d": {"dia_spmv": None, "tri_sweep": None},
+MODE_KERNELS = {"banded-dia": {"dia_spmv": None, "tri_sweep": None,
+                               "plain_factor_sweep": None},
+                "mesh-2d": {"dia_spmv": None, "tri_sweep": None,
+                            "plain_factor_sweep": None},
                 "block-dia": {"bspmv": None, "bfactor_dinv": None,
-                              "bfactor_u0": None, "block_inverse": None}}
+                              "bfactor_u0": None, "block_inverse": None,
+                              "bdia_lower_sweep": None,
+                              "bdia_upper_sweep": None}}
 
 
 def dist_modes() -> None:
@@ -1894,7 +2057,9 @@ def newton_case(label: str, M, b, opts: dict, want_factor: dict) -> dict:
     del ilu0
     relres0 = card_relres(D0, bt, x)
     relres = card_relres(D, bt, x2)
-    spmv_name = "bspmv" if getattr(D, "bs", 1) > 1 else "dia_spmv"
+    block = getattr(D, "bs", 1) > 1
+    spmv_name = "bspmv" if block else "dia_spmv"
+    napply = int(opts["blasted_async_sweeps"].split(",")[1])
     rec = {"fact_init": opts["blasted_async_fact_init_type"],
            "iters_before": info.iters, "iters_after": info2.iters,
            "relres_true_before": relres0, "relres_true_after": relres,
@@ -1913,10 +2078,11 @@ def newton_case(label: str, M, b, opts: dict, want_factor: dict) -> dict:
     if not refactored or fresh_equal is False:
         fail(f"{label}: the factor after the update is stale: {rec}")
     expect_launches(f"{label} factor", fac, want_factor)
+    k7 = 2 * napply * info2.iters
     expect_launches(f"{label} solve", sol,
                     {spmv_name: 2 * info2.iters + 1,
-                     **({"tri_sweep": None} if spmv_name == "dia_spmv"
-                        else {})})
+                     **({"bdia_lower_sweep": k7, "bdia_upper_sweep": k7}
+                        if block else {"tri_sweep": None})})
     del ctx
     return {k: fac[k] + sol[k] for k in fac}
 
@@ -1925,14 +2091,15 @@ def newton(A, b, B, bb) -> dict:
     """[newton]: the Newton-step workflow on the seeded 160³ f32 system and
     on the bs = 4 [block-main] system, ILU(0) 8,4, once with FactInit
     ORIGINAL and once with NONE (the warm start from the previous factor,
-    plain route: C2).  The scalar factor launches no kernel either way (the
-    160³ band is below JAX's gate); the block factor runs K6 only with
-    ORIGINAL.  Returns the launches."""
+    plain route: C2).  The scalar factor runs K8 either way (the 160³ band
+    is below JAX's gate: plain sweeps); the block factor runs K6 only with
+    ORIGINAL; the block solves' applies run K7.  Returns the launches."""
     total = dict.fromkeys(_cuda.launches, 0)
     nbuild = int(NEWTON_OPTS["blasted_async_sweeps"].split(",")[0])
     cases = [
-        ("scalar original", A, b, "init_original", {}),
-        ("scalar none", A, b, "init_none", {}),
+        ("scalar original", A, b, "init_original",
+         {"plain_factor_sweep": nbuild}),
+        ("scalar none", A, b, "init_none", {"plain_factor_sweep": nbuild}),
         ("block original", B, bb, "init_original",
          {"bfactor_dinv": nbuild - 1, "bfactor_u0": 1,
           "block_inverse": None}),
@@ -1975,15 +2142,18 @@ def mixed(A, b, main_rec: dict) -> dict:
     """[mixed]: [main]'s system and options with ``-blasted_apply_dtype
     bfloat16``: the factors stored in bfloat16, so the apply takes the
     plain shifted products in float32 (JAX's rule) and launches no K2; K1
-    once per SpMV.  Prints the iterations and steady solve ms against
+    once per SpMV, K8 once per factor sweep.  Prints the iterations and steady solve ms against
     [main]'s.  Returns the launches."""
     opts = dict(MAIN_OPTS, blasted_apply_dtype="bfloat16")
     rec, ctx = run_main("mixed", A, b, 0.0,
                         {"n": A.nrows, "host_system": "reused"}, opts)
     if ctx.prec.state.ilu.dtype != torch.bfloat16:
         fail(f"mixed: the factor is stored in {ctx.prec.state.ilu.dtype}")
+    # the factor is computed in float32 (K8) and stored in bfloat16
+    nbuild = int(MAIN_OPTS["blasted_async_sweeps"].split(",")[0])
     expect_launches("mixed", rec["launches"],
-                    {"dia_spmv": 2 * rec["iters"] + 1})
+                    {"dia_spmv": 2 * rec["iters"] + 1,
+                     "plain_factor_sweep": nbuild})
     print("[mixed] " + json.dumps({
         "iters_mixed_vs_main": [rec["iters"], main_rec["iters"]],
         "solve_ms_steady_mixed_vs_main": [1e3 * rec["solve_s"],
@@ -2136,11 +2306,12 @@ def mc_kernel(mesh) -> dict:
             with torch.cuda.device(dev):
                 if dev == mesh.first:
                     if name in scalar:
-                        timed(rec, kernel, twin, *scalar_work(name, n, isz),
+                        timed(rec, name, kernel, twin,
+                              *scalar_work(name, n, isz),
                               dtype, scalar_library(name, op))
                         rec["shape"] = f"g={g} n={n} float32"
                     else:
-                        timed(rec, kernel, twin,
+                        timed(rec, name, kernel, twin,
                               *block_work(name, nb, BLOCK_BS, npair, isz),
                               dtype, block_library_of(name, bop))
                         rec["shape"] = (f"bs={BLOCK_BS} g={BLOCK_G} nb={nb} "
@@ -2265,13 +2436,14 @@ def mc_dist_main(mesh, A, b) -> dict:
     """[mc-dist-main]: [dist-main]'s system (the seeded 160³ Poisson, f32,
     ILU(0) 4,4 on plain sweeps, BiCGSTAB at rtol 1e-5) over the four cards,
     over four shards of cuda:0 and over one shard: each card launches
-    K1 = 2·it + 1 and K2 = 16·it per shard it holds, no K3/K4."""
+    K1 = 2·it + 1, K2 = 16·it and K8 = 4 per shard it holds, no K3/K4."""
     opts = dict(ILU44_OPTS, rtol=KRYLOV_RTOL)
-    nsw = int(opts["blasted_async_sweeps"].split(",")[1])
+    nbuild, nsw = map(int, opts["blasted_async_sweeps"].split(","))
     return mc_solves("mc-dist-main", A, b, opts, mesh, KRYLOV_RELRES,
                      "DistDiaSolver",
                      lambda it: {"dia_spmv": 2 * it + 1,
-                                 "tri_sweep": 2 * nsw * 2 * it},
+                                 "tri_sweep": 2 * nsw * 2 * it,
+                                 "plain_factor_sweep": nbuild},
                      one_shard=True, seed=31)
 
 
@@ -2279,14 +2451,16 @@ def mc_dist_block_main(mesh, B, bb) -> dict:
     """[mc-dist-block-main]: [dist-block-main]'s system (bs = 4, 128³
     blocks, f32, block ILU(0) 4,4 on the compressed factor) over the four
     cards and over four shards of cuda:0: each card launches K5 = 2·it + 1,
-    three K6 Dinv sweeps, one K6 U0 sweep and two block inverses per shard
-    it holds."""
-    nbuild = int(ILU44_OPTS["blasted_async_sweeps"].split(",")[0])
+    three K6 Dinv sweeps, one K6 U0 sweep, two block inverses and
+    K7 = 8·it in each mode per shard it holds."""
+    nbuild, napply = map(int, ILU44_OPTS["blasted_async_sweeps"].split(","))
     return mc_solves("mc-dist-block-main", B, bb, ILU44_OPTS, mesh,
                      MAIN_RELRES, "DistBlockDiaSolver",
                      lambda it: {"bspmv": 2 * it + 1,
                                  "bfactor_dinv": nbuild - 1,
-                                 "bfactor_u0": 1, "block_inverse": 2},
+                                 "bfactor_u0": 1, "block_inverse": 2,
+                                 "bdia_lower_sweep": 2 * napply * it,
+                                 "bdia_upper_sweep": 2 * napply * it},
                      one_shard=False, seed=32)
 
 
@@ -2299,7 +2473,7 @@ def mc_weak(mesh, one_shard: dict) -> dict:
     solve and the ms per iteration against [mc-dist-main]'s one-shard
     run."""
     opts = dict(ILU44_OPTS, rtol=KRYLOV_RTOL)
-    nsw = int(opts["blasted_async_sweeps"].split(",")[1])
+    nbuild, nsw = map(int, opts["blasted_async_sweeps"].split(","))
     t0 = time.perf_counter()
     A, b = seeded_poisson(MC_WEAK_NPTS, np.float32)
     t_host = time.perf_counter() - t0
@@ -2313,7 +2487,8 @@ def mc_weak(mesh, one_shard: dict) -> dict:
              "a card")
     it = rec["iters"]
     want = per_card(mesh, {"dia_spmv": 2 * it + 1,
-                           "tri_sweep": 2 * nsw * 2 * it})
+                           "tri_sweep": 2 * nsw * 2 * it,
+                           "plain_factor_sweep": nbuild})
     if rec["launches_by_card"] != want:
         fail(f"mc-weak: launches by card {rec['launches_by_card']}, "
              f"expected {want}")

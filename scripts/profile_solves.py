@@ -16,11 +16,14 @@ the 160³ matrix with ``chip_smoke.py``'s seeded right-hand side under GMRES
 shards of the card, and over one, ILU(0) 4,4 and BiCGSTAB), it sets each
 solve up through ``blasted_tpu_torch.api.solve``, then profiles three
 steady-state windows with ``torch.profiler``: one factor, one
-preconditioner apply and one whole Krylov solve.  For each window it prints one JSON line: the host wall time
-(between two ``torch.cuda.synchronize()``), the device busy time (the union
-of the kernel, copy and memset intervals of the trace), the idle share
-(1 − busy / wall) and the device time by kernel name.  It imports nothing of
-JAX.
+preconditioner apply and one whole Krylov solve.  For each window it prints
+one JSON line: the host wall time (between two
+``torch.cuda.synchronize()``), the device busy time (the union of the
+kernel, copy and memset intervals of the trace), the idle share
+(1 − busy / wall) and the device time by kernel name.  The banded windows
+also name the port's kernels they must run (``named``: calls and device ms
+of K8 in the scalar factor, of K7's two modes in the block apply and
+solve) and fail without them.  It imports nothing of JAX.
 
 On a machine with four cards,
 
@@ -60,6 +63,10 @@ from blasted_tpu_torch.parallel import make_mesh, shard_vector  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TOP = 14
+# the port's kernels by words of their demangled names in the trace
+K8 = {"K8 plain_factor_sweep": ("plain_factor_sweep_kernel",)}
+K7 = {"K7 lower": ("bdia_sweep_kernel", "false"),
+      "K7 upper": ("bdia_sweep_kernel", "true")}
 
 
 def _trace_events(prof) -> list:
@@ -104,11 +111,13 @@ def _by_card(events, host, wall_ms: float, iters) -> dict:
 
 
 def window(label: str, fn, sync=torch.cuda.synchronize,
-           per_card: bool = False) -> dict:
+           per_card: bool = False, named=None) -> dict:
     """Profile one call of ``fn`` (warm) and summarise its device time;
     ``sync`` waits for the cards the window runs on (default: the
     current one).  With ``per_card``, the time by card and the host's
-    API calls too (per iteration where ``fn`` returns a SolveInfo)."""
+    API calls too (per iteration where ``fn`` returns a SolveInfo).
+    ``named`` maps a label to words of a kernel's name: the window reports
+    each one's calls and device ms and raises if one never ran."""
     fn()
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -130,6 +139,13 @@ def window(label: str, fn, sync=torch.cuda.synchronize,
     rec = {"window": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,
            "kernels": [[name, calls, ms] for name, (calls, ms) in top]}
+    if named:
+        rec["named"] = {}
+        for key, words in named.items():
+            hits = [v for n, v in by_name.items()
+                    if all(w in n for w in words)]
+            rec["named"][key] = [sum(c for c, _ in hits),
+                                 sum(t for _, t in hits)]
     if per_card:
         iters = getattr(result[1], "iters", None) \
             if isinstance(result, tuple) else None
@@ -137,10 +153,14 @@ def window(label: str, fn, sync=torch.cuda.synchronize,
         rec.update(_by_card(events, [e for e in trace if str(
             e.get("cat", "")).startswith("cuda_")], wall_ms, iters))
     print("[profile] " + json.dumps(rec), flush=True)
+    missing = [k for k, (calls, _) in rec.get("named", {}).items() if not calls]
+    if missing:
+        raise RuntimeError(f"{label}: no {missing} in the trace")
     return rec
 
 
-def profile_path(label: str, A, b, opts) -> None:
+def profile_path(label: str, A, b, opts, factor_named=None,
+                 apply_named=None) -> None:
     x, info, ctx = solve(A, b, opts)
     prec = ctx.prec
     amat = chip_smoke.operator(ctx)
@@ -148,11 +168,12 @@ def profile_path(label: str, A, b, opts) -> None:
     bt = torch.from_numpy(b).to(prec.device)
     print(f"[{label}] n={A.nrows} iters={info.iters} "
           f"converged={info.converged}", flush=True)
-    window(f"{label} factor", lambda: compute_preconditioner(ctx))
-    window(f"{label} apply", lambda: prec.apply_flat(bt))
+    window(f"{label} factor", lambda: compute_preconditioner(ctx),
+           named=factor_named)
+    window(f"{label} apply", lambda: prec.apply_flat(bt), named=apply_named)
     window(f"{label} solve", lambda: solver(
         amat, prec.apply_flat, bt, torch.zeros_like(bt), tol=opts["rtol"],
-        maxiter=opts["maxiter"], **kw))
+        maxiter=opts["maxiter"], **kw), named=apply_named)
 
 
 def profile_dist(label: str, A, b, opts, mesh, per_card: bool = False):
@@ -211,7 +232,7 @@ def main(argv=None) -> int:
         return 0
     A, b, _ = poisson3d_system((chip_smoke.MAIN_NPTS,) * 3, dist="uniform")
     A, b = A.astype(np.float32), b.astype(np.float32)
-    profile_path("scalar", A, b, chip_smoke.MAIN_OPTS)
+    profile_path("scalar", A, b, chip_smoke.MAIN_OPTS, factor_named=K8)
     profile_path("mixed scalar", A, b, dict(chip_smoke.MAIN_OPTS,
                                             blasted_apply_dtype="bfloat16"))
     profile_path("padded scalar", A, b, chip_smoke.PADDED_OPTS)
@@ -227,7 +248,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     B, bb = chip_smoke.block_system(chip_smoke.BLOCK_G, chip_smoke.BLOCK_BS,
                                     np.float32, seed=7)
-    profile_path("block", B, bb, chip_smoke.ILU44_OPTS)
+    profile_path("block", B, bb, chip_smoke.ILU44_OPTS, apply_named=K7)
     torch.cuda.empty_cache()
     profile_path("padded block", B, bb, chip_smoke.PADDED_OPTS)
     del B, bb

@@ -122,10 +122,12 @@ def test_section_runs_on_cpu(part):
         assert v["stamp"]["device"] == "cpu" and v["stamp"]["parts"] == part
 
 
+_BLOCK_HELD = {"bspmv", "bfactor_dinv", "bfactor_u0", "block_inverse",
+               "bdia_lower_sweep", "bdia_upper_sweep"}
 HELD = {"scalar": {"dia_spmv", "factor_u0", "factor_lower",
                    "tri_sweep_lower", "tri_sweep_upper"},
-        "block4": {"bspmv", "bfactor_dinv", "bfactor_u0", "block_inverse"},
-        "block5": {"bspmv", "bfactor_dinv", "bfactor_u0", "block_inverse"}}
+        "block4": _BLOCK_HELD, "block5": _BLOCK_HELD,
+        "solve": {"plain_factor_sweep"}}
 
 
 @pytest.mark.parametrize("part,wrapper", [("scalar", "factor_lower_stencil"),

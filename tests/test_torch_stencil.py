@@ -19,7 +19,7 @@ from blasted_tpu.sparse.dia import shift_read as jax_shift_read
 from blasted_tpu_torch.config import SEQUENTIAL, FactInit
 from blasted_tpu_torch.ops import _cuda, stencil
 from blasted_tpu_torch.ops.sweeps import unit_lower_sweep, upper_solve_sweep
-from blasted_tpu_torch.precond.dia_ilu0 import dia_factor_sweep_tuple, dia_pairs
+from blasted_tpu_torch.precond.dia_ilu0 import dia_factor_sweep, dia_pairs
 from blasted_tpu_torch.sparse import dia_from_numpy
 
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -189,10 +189,11 @@ def test_compressed_k_sweeps_equal_plain_2k():
     got = stencil.dia_factor_sweeps_stencil(offsets, pairs, d0, base, base,
                                             nsweeps)
     mask_t = [None] * len(offsets)
+    plan = stencil.PlainSweepPlan(offsets, pairs, d0, mask_t, prune=True,
+                                  device="cpu")
     ref = {0: base}
     for s in range(1, 2 * nsweeps + 1):
-        ref[s] = dia_factor_sweep_tuple(offsets, pairs, d0, mask_t, base,
-                                        ref[s - 1])
+        ref[s] = dia_factor_sweep(plan, base, ref[s - 1])
     for d, o in enumerate(offsets):
         want = ref[2 * nsweeps][d] if o >= 0 else ref[2 * nsweeps - 1][d]
         np.testing.assert_allclose(got[d].numpy(), want.numpy(), **TOL)
@@ -211,9 +212,11 @@ def test_compressed_fixed_point():
     pairs = dia_pairs(offsets)
     d0 = offsets.index(0)
     base = torch.from_numpy(data)
+    plan = stencil.PlainSweepPlan(offsets, pairs, d0, [None] * 7, prune=True,
+                                  device="cpu")
     ilu = base
     for _ in range(60):
-        ilu = dia_factor_sweep_tuple(offsets, pairs, d0, [None] * 7, base, ilu)
+        ilu = dia_factor_sweep(plan, base, ilu)
     out = stencil.dia_factor_sweeps_stencil(offsets, pairs, d0, base, ilu, 1)
     np.testing.assert_allclose(out.numpy(), ilu.numpy(), **TOL)
 
@@ -227,7 +230,6 @@ def test_dia_products_and_full_sweep_match_jax():
     from blasted_tpu.precond.dia_ilu0 import dia_factor_sweep as jax_full_sweep
     from blasted_tpu_torch.ops.dia import dia_gemv3
     from blasted_tpu_torch.ops.sweeps import lower_mv, upper_mv
-    from blasted_tpu_torch.precond.dia_ilu0 import dia_factor_sweep
 
     offsets, data, mask = _band(6, seed=12)
     n = data.shape[1]
@@ -245,9 +247,11 @@ def test_dia_products_and_full_sweep_match_jax():
                                np.asarray(jax_upper_mv(Dj, Dj.data, x)), **TOL)
     pairs = dia_pairs(offsets)
     d0 = offsets.index(0)
+    plan = stencil.PlainSweepPlan(offsets, pairs, d0, D.mask, prune=False,
+                                  device="cpu")
     ilu, ilu_j = D.data, Dj.data
     for _ in range(3):
-        ilu = dia_factor_sweep(offsets, pairs, d0, D.mask, D.data, ilu)
+        ilu = dia_factor_sweep(plan, D.data, ilu)
         ilu_j = jax_full_sweep(offsets, pairs, d0, Dj.mask, Dj.data, ilu_j)
     np.testing.assert_allclose(ilu.numpy(),
                                np.stack([np.asarray(v) for v in ilu_j]), **TOL)
