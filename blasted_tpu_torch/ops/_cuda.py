@@ -63,11 +63,16 @@ _SIGNATURES = {
                       _P, _I64, _P),
     "bt_plain_factor_sweep": (_OFFS, _I32, _I32, _I32, _P, _P, _P, _P, _P,
                               _I64, _P),
+    "bt_padded_mv": (_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _I32,
+                     _P),
+    "bt_padded_factor_sweep": (_I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I64, _P),
 }
 
 #: The source under ``csrc/`` of each kernel, by the name its launches are
 #: counted under (K6 by mode: the Dinv-emitting sweeps and the U0-emitting
-#: final sweep; K7 by mode: the unit-lower and the upper apply sweep).
+#: final sweep; K7 and K10 by mode: the unit-lower and the upper apply
+#: sweep; K9-K11 are the padded path's).
 KERNEL_SOURCES = {
     "dia_spmv": "dia_stencil.cu", "tri_sweep": "dia_stencil.cu",
     "factor_u0": "dia_stencil.cu", "factor_lower": "dia_stencil.cu",
@@ -76,6 +81,8 @@ KERNEL_SOURCES = {
     "bdia_lower_sweep": "bdia_stencil.cu",
     "bdia_upper_sweep": "bdia_stencil.cu",
     "plain_factor_sweep": "dia_stencil.cu",
+    "padded_spmv": "padded.cu", "padded_lower_sweep": "padded.cu",
+    "padded_upper_sweep": "padded.cu", "padded_factor_sweep": "padded.cu",
 }
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.

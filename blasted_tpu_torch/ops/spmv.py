@@ -2,12 +2,11 @@
 
 Port of ``blasted_tpu/ops/spmv.py:23-66`` (reference:
 src/blas/matvecs.cpp:24-182): the DIA branch of ``spmv`` is kernel K1, the
-block-DIA branch of ``bspmv`` kernel K5.  On the padded forms ``y = A x`` is
-one ``(n, W)`` gather of ``x``, a product and a reduction over the width,
-as XLA gathers were in JAX (no Pallas kernel); the block form contracts
-``(n, W, bs, bs) × (n, W, bs)``.  Block contractions here are broadcast
-multiplies and sums, never matmuls, so float32 stays exact float32 whatever
-the TF32 flags say (ROADMAP.md fault C4).
+block-DIA branch of ``bspmv`` kernel K5, and the padded CSR/BSR forms
+kernel K9 (``ops/padded.py``; XLA gathers in JAX, no Pallas kernel).  Block
+contractions here are broadcast multiplies and sums, never matmuls, so
+float32 stays exact float32 whatever the TF32 flags say (ROADMAP.md fault
+C4).
 """
 
 from __future__ import annotations
@@ -18,14 +17,15 @@ from ..sparse.bdia import BlockDiaMatrix
 from ..sparse.dia import DiaMatrix
 from .bdia import bdia_spmv
 from .dia import dia_spmv
+from .padded import col_table, padded_spmv
 
-__all__ = ["spmv", "gemv3", "padded_mv", "block_matvec", "bmv", "bmm",
-           "bspmv", "bgemv3"]
+__all__ = ["spmv", "gemv3", "padded_mv", "block_matvec", "bmv", "bspmv",
+           "bgemv3"]
 
 
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A x (reference: matvecs.cpp csr_matrix_apply, :24-47): DIA
-    through K1, padded CSR by gather and width reduction."""
+    through K1, padded CSR through K9."""
     if isinstance(A, DiaMatrix):
         return dia_spmv(A, x)
     return padded_mv(A, A.vals_pad, x)
@@ -33,10 +33,9 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
 
 def padded_mv(A, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Σ_w vals[i, w]·x[col(i, w)] over the padded rows of ``A``: ``vals``
-    is scalar (n, W) or block (nbrows, W, bs, bs) in A's padded layout."""
-    if vals.dim() == 2:
-        return (vals * A.gather_x(x)).sum(1)
-    return block_matvec(vals, A.gather_x(x))
+    is scalar (n, W) or block (nbrows, W, bs, bs) in A's padded layout
+    (K9)."""
+    return padded_spmv(vals, col_table(A), x)
 
 
 def gemv3(A, a, x: torch.Tensor, b, y: torch.Tensor) -> torch.Tensor:
@@ -49,16 +48,6 @@ def bmv(blocks: torch.Tensor, segs: torch.Tensor) -> torch.Tensor:
     return (blocks * segs.unsqueeze(-2)).sum(-1)
 
 
-def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched block products ``c[…, i, k] = Σ_j a[…, i, j]·b[…, j, k]``,
-    as bs broadcast products each the size of one operand (one
-    (…, bs, bs, bs) product would hold bs times the pair gathers)."""
-    c = a[..., :, 0:1] * b[..., 0:1, :]
-    for j in range(1, a.shape[-1]):
-        c = c + a[..., :, j:j + 1] * b[..., j:j + 1, :]
-    return c
-
-
 def block_matvec(blocks: torch.Tensor, segs: torch.Tensor) -> torch.Tensor:
     """``blocks`` (n, W, bs, bs) times ``segs`` (n, W, bs), summed over the
     row width → (n, bs) (the JAX ``einsum('rwij,rwj->ri')``)."""
@@ -67,7 +56,7 @@ def block_matvec(blocks: torch.Tensor, segs: torch.Tensor) -> torch.Tensor:
 
 def bspmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A x on (nbrows, bs) block vectors: block-DIA through K5, padded
-    BSR by gather and block contraction."""
+    BSR through K9."""
     if isinstance(A, BlockDiaMatrix):
         return bdia_spmv(A, x)
     return padded_mv(A, A.vals_pad, x)

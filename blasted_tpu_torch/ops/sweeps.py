@@ -7,10 +7,10 @@ update of all rows: sweep k reads sweep k−1's values (Jacobi on the
 triangular systems).  On DIA storage the ILU apply sweeps are kernel K2
 (the plain DIA product for a factor stored in another dtype, as in JAX) and
 the other products the DIA streams of ``ops/dia.py``; on block-DIA they are
-the SoA products of ``ops/bdia.py``.  On the padded forms each sweep is one
-masked ``(n, W)`` gather, a product and a width reduction, torch operations
-as XLA gathers were in JAX; the block forms contract with the exact
-broadcast products of ``ops/spmv.py``.
+the SoA products of ``ops/bdia.py``.  On the padded forms the ILU apply
+sweeps are kernel K10 and every other product is K9 on the masked triangle
+(``ops/padded.py``; XLA gathers in JAX); the diagonal products contract
+with the exact broadcast products of ``ops/spmv.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ..sparse.bdia import BlockDiaMatrix
 from ..sparse.dia import DiaMatrix
 from .bdia import bdia_mv
 from .dia import dia_mv
+from .padded import col_table, padded_lower_sweep, padded_upper_sweep
 from .spmv import bmv, padded_mv
 from .stencil import tri_sweep_stencil
 
@@ -91,14 +92,16 @@ def unit_lower_sweep(A, ilu: torch.Tensor, z: torch.Tensor,
     """ILU forward sweep on L y = z with unit diagonal: y ← z − L y
     (reference: kernels_ilu_apply.hpp scalar_unit_lower_triangular).
     On DIA, sorted offsets make the strictly-lower diagonals the rows
-    ``[:d0]`` of K2's operand.  A factor stored in another dtype than the
+    ``[:d0]`` of K2's operand; on padded CSR it is K10's lower mode.  A factor stored in another dtype than the
     vector's (``apply_dtype``) takes the plain shifted product instead, in
     the vector's dtype: the JAX package's rule
     (``blasted_tpu/precond/dia_ilu0.py:309``), fixed by the dtypes."""
-    if isinstance(A, DiaMatrix) and ilu.dtype == z.dtype:
-        d0 = A.d0
-        return tri_sweep_stencil(A.offsets[:d0], ilu[:d0], z, y)
-    return z - lower_mv(A, ilu, y)
+    if isinstance(A, DiaMatrix):
+        if ilu.dtype == z.dtype:
+            d0 = A.d0
+            return tri_sweep_stencil(A.offsets[:d0], ilu[:d0], z, y)
+        return z - lower_mv(A, ilu, y)
+    return padded_lower_sweep(triangle(A, ilu, "lower"), col_table(A), z, y)
 
 
 def upper_solve_sweep(A, ilu: torch.Tensor, ilu_dinv: torch.Tensor,
@@ -107,12 +110,15 @@ def upper_solve_sweep(A, ilu: torch.Tensor, ilu_dinv: torch.Tensor,
     (reference: kernels_ilu_apply.hpp scalar_upper_triangular); on DIA
     over the strictly-upper rows ``[d0+1:]`` through K2, or, for a factor
     in another dtype than the vector's, the plain product (see
-    :func:`unit_lower_sweep`)."""
-    if isinstance(A, DiaMatrix) and ilu.dtype == z.dtype:
-        d0 = A.d0
-        return tri_sweep_stencil(A.offsets[d0 + 1:], ilu[d0 + 1:], y, z,
-                                 ilu_dinv)
-    return ilu_dinv * (y - upper_mv(A, ilu, z))
+    :func:`unit_lower_sweep`); on the padded forms K10's upper mode."""
+    if isinstance(A, DiaMatrix):
+        if ilu.dtype == z.dtype:
+            d0 = A.d0
+            return tri_sweep_stencil(A.offsets[d0 + 1:], ilu[d0 + 1:], y, z,
+                                     ilu_dinv)
+        return ilu_dinv * (y - upper_mv(A, ilu, z))
+    return padded_upper_sweep(triangle(A, ilu, "upper"), col_table(A),
+                              ilu_dinv, y, z)
 
 
 # ----------------------------------------------------------------- block ----
@@ -165,15 +171,22 @@ def block_jacobi_sweep(A, dinv: torch.Tensor, b: torch.Tensor,
 def block_unit_lower_sweep(A, ilu: torch.Tensor, z: torch.Tensor,
                            y: torch.Tensor) -> torch.Tensor:
     """y ← z − L y (unit block diagonal; reference: kernels_ilu_apply.hpp
-    block_unit_lower_triangular, :54-67)."""
-    return z - block_lower_mv(A, ilu, y)
+    block_unit_lower_triangular, :54-67); K10's lower mode on padded
+    BSR."""
+    if isinstance(A, BlockDiaMatrix):
+        return z - block_lower_mv(A, ilu, y)
+    return padded_lower_sweep(triangle(A, ilu, "lower"), col_table(A), z, y)
 
 
 def block_upper_solve_sweep(A, ilu: torch.Tensor, ilu_dinv: torch.Tensor,
                             y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """z ← U_ii⁻¹ (y − U z), diagonal blocks pre-inverted (reference:
-    kernels_ilu_apply.hpp block_upper_triangular, :79-94)."""
-    return _dmul(ilu_dinv, y - block_upper_mv(A, ilu, z))
+    kernels_ilu_apply.hpp block_upper_triangular, :79-94); K10's upper
+    mode on padded BSR."""
+    if isinstance(A, BlockDiaMatrix):
+        return _dmul(ilu_dinv, y - block_upper_mv(A, ilu, z))
+    return padded_upper_sweep(triangle(A, ilu, "upper"), col_table(A),
+                              ilu_dinv, y, z)
 
 
 # ----------------------------------------------------------- sweep loops ----
@@ -221,4 +234,4 @@ def _gauss_jordan_inverse(a: torch.Tensor) -> torch.Tensor:
         fac = M[:, :, col]
         M = torch.where(colhot[None, :, None], pn[:, None, :],
                         M - fac[:, :, None] * pn[:, None, :])
-    return M[:, :, bs:]
+    return M[:, :, bs:].contiguous()

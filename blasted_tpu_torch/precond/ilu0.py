@@ -11,11 +11,11 @@ Factorization (Chow–Patel): ``nbuildsweeps`` times the whole-pattern update
     upper (i<=c): u_ic ←  â_ic − Σ l_ik u_kc
 
 with every right-hand value read from the previous sweep.  The pair lists
-come from the host symbolic pass (``ilu_pattern.py``) padded into gather
-tensors; one sweep is two gathers, an (nnz, P) product-reduction (block:
-bs×bs products as exact broadcast multiply-adds, ``ops/spmv.py``) and one
-divide (block: a product with the previous sweep's inverted diagonal
-blocks) — torch operations, as XLA gathers were in JAX: there is no Pallas
+come from the host symbolic pass (``ilu_pattern.py``); one sweep is kernel
+K11 (``ops/padded.py``: the pair products and one divide, block: a product
+with the previous sweep's inverted diagonal blocks, which torch computes
+per sweep) over the lists in int32 CSR form, and the apply's sweeps are
+K10 on the pre-masked triangles — XLA gathers in JAX, with no Pallas
 kernel on this path.
 
 ``nbuildsweeps == SEQUENTIAL`` (−1) selects the exact factorization: a host
@@ -39,7 +39,14 @@ import numpy as np
 import torch
 
 from ..config import SEQUENTIAL, ApplyInit, FactInit
-from ..ops.spmv import bmm, bmv, padded_mv
+from ..ops.padded import (
+    FactorSweepPlan,
+    bmm,
+    col_table,
+    padded_factor_sweep,
+    padded_lower_sweep,
+    padded_upper_sweep,
+)
 from ..ops.sweeps import invert_diag_blocks, run_sweeps, triangle
 from ..sparse.csr import extend_zero, flat_colind, take
 from .base import Preconditioner, PrecInfo
@@ -75,6 +82,7 @@ class _ILUSymbolic(NamedTuple):
     colind: torch.Tensor    # (nnz,) int64 — column of each stored nonzero
     rows: torch.Tensor      # (nnz,) int64 — row of each stored nonzero
     is_lower: torch.Tensor  # (nnz,) bool — strictly-lower entries
+    plan: FactorSweepPlan   # K11's int32 pair lists and divisor table
     host: tuple             # (rowptr, colind) numpy, for the lazy schedules
 
 
@@ -86,22 +94,30 @@ class _ILUState(NamedTuple):
     scale: torch.Tensor | None   # (n,) or (nbrows, bs) scaling, or None
 
 
-def _build_symbolic(P) -> _ILUSymbolic:
-    """Pair lists and per-entry tables of the padded matrix ``P``."""
+def _build_symbolic(P, block: bool) -> _ILUSymbolic:
+    """Pair lists and per-entry tables of the padded matrix ``P``; K11's
+    divisor of a strictly-lower entry is u_cc's position in the iterate
+    (scalar) or the column c, a row of the inverted diagonal blocks
+    (block)."""
     rowptr = P.rowptr.cpu().numpy()
     colind = flat_colind(P)
     nnz = P.nnz_total
-    plist = compute_ilu_positions(rowptr, colind, P.diagind.cpu().numpy())
+    diagind = P.diagind.cpu().numpy()
+    plist = compute_ilu_positions(rowptr, colind, diagind)
     padded = pad_ilu_positions(plist, nnz)
     rows = rows_of_nnz(rowptr)
+    lower = colind < rows
     dev = P.device
 
     def put(a, dtype=torch.int64):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
+    dtab = np.where(lower, colind if block else diagind[colind], -1)
+    plan = FactorSweepPlan(plist.posptr, plist.lowerp, plist.upperp, dtab,
+                           P.nbrows if block else nnz, dev)
     return _ILUSymbolic(lowerp=put(padded.lowerp), upperp=put(padded.upperp),
                         colind=put(colind), rows=put(rows),
-                        is_lower=put(colind < rows, torch.bool),
+                        is_lower=put(lower, torch.bool), plan=plan,
                         host=(rowptr, colind))
 
 
@@ -188,7 +204,7 @@ class _PaddedILU0(Preconditioner):
         """Symbolic data survives :meth:`update_values`; values are re-read
         from the current matrix on every compute()."""
         if self.symbolic is None:
-            self.symbolic = _build_symbolic(self.mat)
+            self.symbolic = _build_symbolic(self.mat, self._BLOCK)
         self._vals = self.mat.flat_vals()
 
     def _schedule_levels(self):
@@ -250,6 +266,39 @@ class _PaddedILU0(Preconditioner):
             s = s - torch.where(sym.is_lower, ilu * udiag_c, ilu)
         return s.abs().sum()
 
+    def factor_sweep_fn(self, base):
+        """One Chow–Patel sweep ``ilu → ilu'`` on the flat values (K11);
+        the divisors are the previous sweep's (``_divisors``)."""
+        plan = self.symbolic.plan
+        return lambda ilu: padded_factor_sweep(plan, base, ilu,
+                                               self._divisors(ilu))
+
+    def apply_with(self, mat, state, r: torch.Tensor) -> torch.Tensor:
+        """Solve LU z ≈ r by sweep (or exact wavefront) triangular solves
+        (reference: scalar_ilu0_apply, solverops_ilu0.cpp:240-321;
+        block_ilu0_apply, :55-148): K10's two modes on the pre-masked
+        triangles; block vectors are (nbrows, bs)."""
+        st = state
+        z = st.scale * r if st.scale is not None else r
+        if self.napplysweeps == SEQUENTIAL:
+            low, nlow, up, nup = self._schedule_levels()
+            lower_solve, upper_solve = self._EXACT
+            y = lower_solve(mat, st.lower, z, low, nlow)
+            zout = upper_solve(mat, st.upper, st.ilu_dinv, y, up, nup)
+        else:
+            col = col_table(mat)
+            y = run_sweeps(self.napplysweeps,
+                           lambda yy: padded_lower_sweep(st.lower, col, z, yy),
+                           torch.zeros_like(z))
+            z0 = y if self.apply_init == ApplyInit.JACOBI \
+                else torch.zeros_like(z)
+            zout = run_sweeps(
+                self.napplysweeps,
+                lambda zz: padded_upper_sweep(st.upper, col, st.ilu_dinv, y,
+                                              zz),
+                z0)
+        return st.scale * zout if st.scale is not None else zout
+
     def apply_relax(self, b, x):
         raise NotImplementedError("ILU relaxation not implemented "
                                   "(matches reference, solverops_ilu0.cpp"
@@ -263,6 +312,7 @@ class ILU0Preconditioner(_PaddedILU0):
     solverops_ilu0.cpp:218-383)."""
 
     _dominance = staticmethod(diagonal_dominance)
+    _EXACT = (exact_lower_solve, exact_upper_solve)
 
     def _scale(self):
         if not self.use_scaling:
@@ -289,41 +339,10 @@ class ILU0Preconditioner(_PaddedILU0):
     def _diag_inverse(udiag):
         return 1.0 / udiag
 
-    def factor_sweep_fn(self, base):
-        """One Chow–Patel sweep ``ilu → ilu'`` on the flat values."""
-        sym = self.symbolic
-        diagind = self.mat.diagind
-
-        def sweep(ilu):
-            ext = extend_zero(ilu)
-            s = base - (ext[sym.lowerp] * ext[sym.upperp]).sum(1)
-            udiag = ilu[diagind]                 # previous sweep's u_cc
-            return torch.where(sym.is_lower, s / udiag[sym.colind], s)
-
-        return sweep
-
-    def apply_with(self, mat, state, r: torch.Tensor) -> torch.Tensor:
-        """Solve LU z ≈ r by sweep (or exact wavefront) triangular solves
-        (reference: scalar_ilu0_apply, solverops_ilu0.cpp:240-321); the
-        sweeps are ``ops/sweeps.py``'s unit-lower and upper-solve sweeps on
-        the pre-masked triangles."""
-        st, A = state, mat
-        z = st.scale * r if st.scale is not None else r
-        if self.napplysweeps == SEQUENTIAL:
-            low, nlow, up, nup = self._schedule_levels()
-            y = exact_lower_solve(A, st.lower, z, low, nlow)
-            zout = exact_upper_solve(A, st.upper, st.ilu_dinv, y, up, nup)
-        else:
-            y = run_sweeps(self.napplysweeps,
-                           lambda yy: z - padded_mv(A, st.lower, yy),
-                           torch.zeros_like(z))
-            z0 = y if self.apply_init == ApplyInit.JACOBI \
-                else torch.zeros_like(z)
-            zout = run_sweeps(
-                self.napplysweeps,
-                lambda zz: st.ilu_dinv * (y - padded_mv(A, st.upper, zz)),
-                z0)
-        return st.scale * zout if st.scale is not None else zout
+    @staticmethod
+    def _divisors(ilu):
+        """K11 divides a lower entry by u_cc of the iterate itself."""
+        return ilu
 
 
 # ================================================================== block ====
@@ -337,6 +356,7 @@ class BlockILU0Preconditioner(_PaddedILU0):
 
     _BLOCK = True
     _dominance = staticmethod(block_diagonal_dominance)
+    _EXACT = (exact_block_lower_solve, exact_block_upper_solve)
 
     def _scale(self):
         if not self.use_scaling:
@@ -366,41 +386,7 @@ class BlockILU0Preconditioner(_PaddedILU0):
     def _diag_inverse(udiag):
         return invert_diag_blocks(udiag)
 
-    def factor_sweep_fn(self, base):
-        """One block Chow–Patel sweep on the (nnzb, bs, bs) values; the two
-        (nnzb, P, bs, bs) pair gathers live only inside the sweep."""
-        sym = self.symbolic
-        diagind = self.mat.diagind
-
-        def sweep(ilu):
-            ext = extend_zero(ilu)
-            s = base - bmm(take(ext, sym.lowerp),
-                           take(ext, sym.upperp)).sum(1)
-            dinv = invert_diag_blocks(take(ilu, diagind))
-            lowered = bmm(s, take(dinv, sym.colind))
-            return torch.where(sym.is_lower[:, None, None], lowered, s)
-
-        return sweep
-
-    def apply_with(self, mat, state, r: torch.Tensor) -> torch.Tensor:
-        """``r`` and the result are (nbrows, bs) block vectors (reference:
-        block_ilu0_apply, solverops_ilu0.cpp:55-148); the block sweeps of
-        ``ops/sweeps.py`` on the pre-masked triangles."""
-        st, A = state, mat
-        z = st.scale * r if st.scale is not None else r
-        if self.napplysweeps == SEQUENTIAL:
-            low, nlow, up, nup = self._schedule_levels()
-            y = exact_block_lower_solve(A, st.lower, z, low, nlow)
-            zout = exact_block_upper_solve(A, st.upper, st.ilu_dinv, y,
-                                           up, nup)
-        else:
-            y = run_sweeps(self.napplysweeps,
-                           lambda yy: z - padded_mv(A, st.lower, yy),
-                           torch.zeros_like(z))
-            z0 = y if self.apply_init == ApplyInit.JACOBI \
-                else torch.zeros_like(z)
-            zout = run_sweeps(
-                self.napplysweeps,
-                lambda zz: bmv(st.ilu_dinv, y - padded_mv(A, st.upper, zz)),
-                z0)
-        return st.scale * zout if st.scale is not None else zout
+    def _divisors(self, ilu):
+        """The previous sweep's inverted diagonal blocks (nbrows, bs, bs),
+        which K11 right-multiplies the lower blocks by."""
+        return invert_diag_blocks(take(ilu, self.mat.diagind))

@@ -29,6 +29,7 @@ from .csr import (
     _compute_diagind,
     _entry_positions,
     _is_equal,
+    _keep_col_table,
     _tensors,
     _zero_diagonal_row,
     as_device,
@@ -247,8 +248,10 @@ class PaddedBSR:
         """Same sparsity, new (nnzb, bs, bs) values (a tensor or numpy
         array); see :meth:`PaddedCSR.with_new_vals`."""
         vals = torch.as_tensor(vals, device=self.device)
-        return dataclasses.replace(self, vals_pad=gather_padded(vals, self.pos),
-                                   diag_blocks=take(vals, self.diagind))
+        new = dataclasses.replace(self, vals_pad=gather_padded(vals, self.pos),
+                                  diag_blocks=take(vals, self.diagind))
+        _keep_col_table(self, new)
+        return new
 
 
 def padded_bsr_from_numpy(pos, colind, vals_pad, diag_blocks, diagind,

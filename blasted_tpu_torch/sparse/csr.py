@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["CSRMatrix", "PaddedCSR", "extend_zero", "gather_padded",
-           "padded_csr_from_numpy", "pad_pattern", "as_device", "take"]
+           "padded_csr_from_numpy", "pad_pattern", "as_device", "take",
+           "col_table"]
 
 
 def as_device(device) -> torch.device:
@@ -253,6 +254,28 @@ def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.view(*idx.shape, *t.shape[1:])
 
 
+def col_table(P) -> torch.Tensor:
+    """The int32 (rows, W) column ids of the padded matrix ``P`` (sentinel
+    = rows), which the padded kernels read (``ops/padded.py``): built at the
+    first call and kept on ``P``; ``with_new_vals`` hands it to the updated
+    matrix, so it is built once per sparsity pattern."""
+    t = P.__dict__.get("_col32")
+    if t is None:
+        rows = P.colind.shape[0]
+        if rows > 2 ** 31 - 1:
+            raise ValueError(f"{rows} rows do not fit int32 column ids")
+        t = P.colind.to(torch.int32).contiguous()
+        object.__setattr__(P, "_col32", t)
+    return t
+
+
+def _keep_col_table(old, new) -> None:
+    """Hand ``old``'s cached :func:`col_table` to ``new``, the same
+    sparsity with new values."""
+    if "_col32" in old.__dict__:
+        object.__setattr__(new, "_col32", old._col32)
+
+
 def gather_padded(values: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Gather an nnz-indexed value tensor, scalar ``(nnz,)`` or block
     ``(nnz, bs, bs)``, into padded ``(n, W, ...)`` form; the sentinel
@@ -358,10 +381,12 @@ class PaddedCSR:
         """Same sparsity, new flat ``(nnz,)`` values (a tensor or numpy
         array) — the value-update path of the PCSetUp-every-Newton-step
         pattern (reference: blasted_petsc.cpp:314-327).  Only the
-        value-derived fields are rebuilt."""
+        value-derived fields are rebuilt; cached index tables carry over."""
         vals = torch.as_tensor(vals, device=self.device)
-        return dataclasses.replace(self, vals_pad=gather_padded(vals, self.pos),
-                                   diag_vals=take(vals, self.diagind))
+        new = dataclasses.replace(self, vals_pad=gather_padded(vals, self.pos),
+                                  diag_vals=take(vals, self.diagind))
+        _keep_col_table(self, new)
+        return new
 
 
 def flat_colind(P) -> np.ndarray:

@@ -7,20 +7,27 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 It builds the CUDA kernels from ``blasted_tpu_torch/csrc`` (K1-K4 and the
 plain factor sweep K8 of the scalar banded path; K5, K6, the block inverse
-and the apply sweep K7 of the point-block path) and checks each against its
-plain PyTorch twin on the card: K1-K4 and K8 at the shapes of the scalar
+and the apply sweep K7 of the point-block path; K9-K11 of the general
+padded path: the padded SpMV, the ILU(0) apply sweep in two modes and the
+factor sweep over the ILU pair lists) and checks each against its plain
+PyTorch twin on the card: K1-K4 and K8 at the shapes of the scalar
 main path (the npts=162 band in float32; K8 in its tuple form, which
 [main] runs, and its stacked form, which the distributed factor runs) and
 at npts=48 in float64; K5, both modes of K6, the block inverse and both
 modes of K7 at bs=4 on the g=128 block band in float32 (the block main
-path's shapes), at bs=5, g=96 in float32 and at bs=4, g=24 in float64.  At
+path's shapes), at bs=5, g=96 in float32 and at bs=4, g=24 in float64;
+K9-K11, each bitwise, on the padded forms of the two main systems in
+float32 (the padded paths' shapes), of the 48³ Poisson matrix and the
+bs=4 g=24 block system in float64 and of a bs=5 g=48 block system.  At
 the main-path shapes it times each kernel, its twin and, where one PyTorch
-call computes the same function, that call (K7's lower mode:
-``torch.addmv`` on the sparse form of L; none for K6, K7's upper mode and
-K8, the kernels line says why).  ``[bench]`` then runs every section of the port's
+call computes the same function, that call (K7's and K10's lower modes:
+``torch.addmv`` on the sparse form of L; K9: ``torch.mv`` on the CUDA
+CSR/BSR matrix; none for K6, the upper modes, K8 and K11, the kernels line
+says why).  ``[bench]`` then runs every section of the port's
 roofline bench (``blasted_tpu_torch/bench/roofline.py``) cut in size
 (``BENCH_SMOKE``: scalar g=240, bs=4 at g=96, bs=5 at g=80, each past
-4× the L2, the padded CSR at g=64, the solve at npts=66; 14 chained
+4× the L2, the padded CSR (K9) at its full g=160, the solve at npts=66;
+14 chained
 iterations, best of 2): each section holds each of its kernels against
 its twin on the section's own operands before timing it, no section may
 fail, each kernel section must launch its kernels, every fraction must lie
@@ -45,23 +52,26 @@ none of the other path's, re-factors and re-solves for steady-state times,
 and solves each system's small float64 form on the card and on the CPU
 twins and requires the same iteration count and solution.
 
-Then the general (padded) path, which has no hand-written kernel: its
-gathers are torch operations.  ``[padded-main]`` and ``[padded-block-main]``
-solve the same two host systems with ``prefer_dia: False`` (padded CSR/BSR,
-ILU(0) ``async_sweeps 8,4``, the scalar path's factor) and require
-convergence, no
-launch of K1-K6 and, for the scalar system, the banded path's iteration
-count within one; each prints its host set-up, factor and solve seconds
-and the device µs of one padded SpMV, one factor sweep and one apply beside
-their byte bounds and the SpMV's ``torch.mv`` on the CUDA CSR/BSR tensor.
+Then the general (padded) path, K9-K11.  ``[padded-main]`` and
+``[padded-block-main]`` solve the same two host systems with
+``prefer_dia: False`` (padded CSR/BSR, ILU(0) ``async_sweeps 8,4``, the
+scalar path's factor) and require convergence, K9-K11 launched exactly as
+the iterations and sweeps say (K9 2·iters + 1, each K10 mode 8·iters,
+K11 8) and no K1-K8, and, for the scalar system, the banded path's
+iteration count within one; each prints its host set-up, factor and solve
+seconds and the device µs of one padded SpMV, one factor sweep (block:
+and the torch inverse of its divisors alone) and one apply beside their
+byte bounds and the SpMV's ``torch.mv`` on the CUDA CSR/BSR tensor.
 ``[tf32]`` requires one padded block SpMV and one block factor sweep to be
-bitwise equal with TF32 matmuls allowed and not.
+bitwise equal with TF32 matmuls allowed and not, through two K9 and two
+K11 launches.
 ``[padded-device-independence]`` solves small float64 systems on the card
 and on the CPU (padded ILU(0), exact ILU(0) and Jacobi, the default
 options, block ILU(0), and two randomly permuted systems through the RCM
 route: one that RCM bands into 105 diagonals, solved on DIA through K1-K4,
 and one it cannot band, solved on padded CSR) and requires the route each
-must take, the same iterations and x within 1e-8.  ``[io]`` writes the
+must take, K9-K11's exact launches on the card, the same iterations and x
+within 1e-8.  ``[io]`` writes the
 [main] system with the PETSc binary writer, reads it back and solves it
 through ``apps.testsolve`` on the card ([main]'s iterations), and round-
 trips a 32³ Matrix-Market file.
@@ -78,7 +88,8 @@ residual at most 1.1·rtol, repeat its iterations, and launch its own
 kernels: K1-K4 with ILU(0), K1 alone otherwise, K5 alone on the block
 system; AMG's levels must all be DIA in float32.  ``[level-sgs]`` (64³:
 one masked update per level) and ``[sai]`` (scalar 64³, block bs=4 g=48:
-the host symbolic tables) are cut in size, as their docstrings say.
+the host symbolic tables) are cut in size, as their docstrings say; on
+padded storage they launch K9 exactly as their SpMVs and applies say.
 ``[tf32]`` then holds one block SAI compute and one AMG apply bitwise
 equal with TF32 matmuls allowed and not; ``[precinfo]`` the DIA,
 block-DIA and padded ILU(0) diagnostics of small float64 systems, card
@@ -94,15 +105,17 @@ float64 on the host) to 1e-10.
 Then the distributed solvers (``blasted_tpu_torch.parallel``), on four
 subdomains of the one card (``make_mesh(devices=["cuda:0"] * 4)``), which
 add no kernel: the banded ones launch K1/K2/K8 or K5/K6/K7/the inverse
-once per shard.  ``[dist-block-main]`` solves the [block-main] system over four
+once per shard, the general ones K10/K11 in each shard's padded ILU(0)
+and AMG K9 in its shard-local SGS smoothers.  ``[dist-block-main]`` solves the [block-main] system over four
 shards (the compressed block factor: K6 and two inverses per shard, K5
 once per shard per SpMV); ``[dist-main]`` the [krylov-main] system with
 ILU(0) 4,4 over four shards and over one (K1 once per shard per SpMV, K2
 eight times per shard per apply, K8 four times per shard per factor, no
 K3/K4), with steady factor and solve times; ``[dist-modes]`` the six
 modes of the distributed dry run (``parallel/dryrun.py``), the banded ones at full width and the others
-cut (the reasons printed), each asserting its route and its kernels, and
-one distributed AMG cycle under [tf32]; ``[dist-device-independence]``
+cut (the reasons printed), each asserting its route and its kernels
+(K9-K11 exactly, ``mode_padded_counts``), and one distributed AMG cycle
+under [tf32]; ``[dist-device-independence]``
 each mode, each banded pc_type and one R3 type (sai, the general route)
 in float64 on four card shards and four CPU shards: the route, the same
 iterations, x within 1e-8.  After ``[dist-main]``, ``[dist-block-main]``
@@ -118,9 +131,9 @@ distributed path across the cards, one shard per card of ``make_mesh()``
 ``[mc-topology]`` (``nvidia-smi topo -m``, peer access of every pair, the
 device time of one halo-sized copy, 25,600 f32, and of one 0-d copy from
 cuda:3 to cuda:0); ``[mc-kernel]`` every kernel on every card at the f32
-shapes of ``[kernel]`` (K7 and K8 included), cut to those (K3/K4 at
-160³, not also 288³; no f64 or bs = 5 checks: they show nothing a card
-adds), held bitwise to its
+shapes of ``[kernel]`` (K7, K8 and K9-K11 included, K9-K11 timed on the
+scalar padded system), cut to those (K3/K4 at 160³, not also 288³; no
+f64 or bs = 5 checks: they show nothing a card adds), held bitwise to its
 twin and counted on that card only, timed on each card (its twin and
 library call on the first only), then one call on cuda:2 operands with
 cuda:0 current (counted on card 2) and calls across two cards (must
@@ -133,12 +146,14 @@ each card's peak memory; ``[mc-weak]`` the seeded uniform Poisson system
 of interior 160 × 160 × 640 over the cards (a 160³ slab, [main]'s size,
 on each; not cut); ``[mc-dist-modes]`` the six dry-run modes at
 [dist-modes]' sizes (its cuts, for its reasons) over the cards, mode 6 on
-a (2, 2) mesh, and over four shards of cuda:0.  None of the one-card
+a (2, 2) mesh, and over four shards of cuda:0, each run with K9-K11's
+exact launches and, over the cards, the general route's on every card.
+None of the one-card
 phases runs: they show nothing a second card adds, and four cards cost
 four times the chip time.  It ends with the kernels line (launches of the
 four-card solves of [mc-dist-main], [mc-dist-block-main] and [mc-weak],
-in all and by card; K3/K4 none: the distributed scalar factor is K8's
-plain sweeps),
+and for K9-K11 of [mc-dist-modes]' general and AMG modes, in all and by
+card; K3/K4 none: the distributed scalar factor is K8's plain sweeps),
 one ``nvidia-smi`` line per card and the last line.  With fewer than four
 cards it exits with code 2 before any phase.
 
@@ -153,6 +168,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import dataclasses
 import io
 import json
 import os
@@ -175,13 +192,23 @@ from blasted_tpu_torch.api import (
 from blasted_tpu_torch.apps import poisson3d_system, testsolve
 from blasted_tpu_torch.bench import common as bench_common
 from blasted_tpu_torch.bench import roofline
-from blasted_tpu_torch.config import AsyncSolverSettings, FactInit, PrecType
+from blasted_tpu_torch.config import (
+    SEQUENTIAL,
+    AsyncSolverSettings,
+    FactInit,
+    PrecType,
+)
 from blasted_tpu_torch.factory import create_preconditioner, to_device_matrix
-from blasted_tpu_torch.ops import _cuda, bstencil, stencil
+from blasted_tpu_torch.ops import _cuda, bstencil, padded, stencil
 from blasted_tpu_torch.ops.spmv import bspmv, spmv
+from blasted_tpu_torch.ops.sweeps import invert_diag_blocks, triangle
 from blasted_tpu_torch.parallel import make_mesh, shard_vector
 from blasted_tpu_torch.parallel.dist_dia import DistBlockDiaSolver
 from blasted_tpu_torch.parallel.dryrun import dryrun_cases, dryrun_multichip
+from blasted_tpu_torch.precond import (
+    BlockILU0Preconditioner,
+    ILU0Preconditioner,
+)
 from blasted_tpu_torch.precond.dia_ilu0 import (
     DiaILU0Preconditioner,
     dia_pairs,
@@ -219,6 +246,10 @@ REPLACES = {
     "bdia_lower_sweep": "blasted_tpu/ops/bdia.py:66",
     "bdia_upper_sweep": "blasted_tpu/ops/bdia.py:73",
     "plain_factor_sweep": "blasted_tpu/precond/dia_ilu0.py:75",
+    "padded_spmv": "blasted_tpu/ops/spmv.py:23",
+    "padded_lower_sweep": "blasted_tpu/ops/sweeps.py:86",
+    "padded_upper_sweep": "blasted_tpu/ops/sweeps.py:93",
+    "padded_factor_sweep": "blasted_tpu/precond/ilu0.py:304",
 }
 # why a kernel has no library yardstick (``library_ms`` null)
 NO_LIBRARY = {
@@ -231,7 +262,14 @@ NO_LIBRARY = {
     "plain_factor_sweep": "no PyTorch call computes a Chow-Patel sweep "
                           "(shifted products, a guarded division, a "
                           "re-mask)",
+    "padded_upper_sweep": "dinv·(y − U z) is two products: torch.addmv "
+                          "computes only y − U z",
+    "padded_factor_sweep": "no PyTorch call computes a Chow-Patel sweep "
+                           "over ILU pair lists",
 }
+# the padded path's kernels (K9, K10 in its two modes, K11)
+PADDED = ("padded_spmv", "padded_lower_sweep", "padded_upper_sweep",
+          "padded_factor_sweep")
 # max |kernel − twin| / max |twin|: the kernels are built to round as their
 # twins do, so these bounds only allow for a different summation order
 TOL = bench_common.TWIN_RTOL
@@ -292,6 +330,7 @@ CUT_NPTS = 66            # [level-sgs] and scalar [sai]: 64³ = 262,144
 SAI_BLOCK_G = 48         # block [sai]: bs = 4 on the g = 48 block band
 STACK_NPTS = 14          # [stack-device-independence]: 12³ Poisson
 STACK_BLOCK_G = 12       # and the bs = 4, g = 12 block band
+PADDED_BS5_G = 48        # [kernel]: K9-K11 at bs = 5 on the g = 48 block band
 # the distributed phases: four subdomains on the one card
 DIST_SHARDS = 4
 # [dist-modes]: the banded modes at full width (161³ = 4,173,281 rows and
@@ -330,9 +369,9 @@ MM_NPTS = 34
 # each kernel section's data still past 4× the 50 MB L2 (7-8×): at
 # g = 160 / 64 / 48, 1.5-2.2× L2, the chained kernels hit in L2 and K3,
 # K5 and K6 read 1.01-1.14 of the H100's spec bandwidth; the padded CSR
-# at g = 64 and the solve at 64³
+# (K9) not cut, at g = 160 (5.2× L2), and the solve at 64³
 BENCH_SMOKE = roofline.Settings(i2=14, reps=2, scalar_g=240, block_g4=96,
-                                block_g5=80, csr_g=64, npts=66)
+                                block_g5=80, csr_g=160, npts=66)
 
 
 def fail(msg: str):
@@ -800,6 +839,222 @@ def inverse_library(op):
     return lambda: torch.linalg.inv_ex(blocks)
 
 
+# ------------------------------------------------ the padded kernels K9-K11
+
+def padded_prep(M) -> dict:
+    """The host-side part of K9-K11's operands for the host CSR/BSR matrix
+    ``M``: its padded form and the ILU(0) symbolic data (the pair table
+    K11 reads) on the CPU, built once and then copied to each card by
+    :func:`padded_operands`."""
+    P = M.pad(device="cpu")
+    cls = BlockILU0Preconditioner if isinstance(M, BSRMatrix) \
+        else ILU0Preconditioner
+    prec = cls(P)
+    prec._ensure_symbolic()
+    return {"host": M, "P": P, "plan": prec.symbolic.plan,
+            "base": prec._vals}
+
+
+def _on(t, device):
+    return t.to(device) if isinstance(t, torch.Tensor) else t
+
+
+def padded_operands(prep: dict, device, seed: int) -> dict:
+    """Operands of K9-K11 on ``device`` at the padded path's shapes: the
+    matrix values and int32 column ids, seeded vectors, the matrix's own
+    strictly-lower and -upper triangles as the apply's factor with its
+    inverted diagonal, and the first factor sweep's operands (the scaled
+    values as base and iterate, the iterate itself or its inverted
+    diagonal blocks as divisors)."""
+    P = dataclasses.replace(prep["P"], **{
+        f.name: _on(getattr(prep["P"], f.name), device)
+        for f in dataclasses.fields(prep["P"])})
+    plan = copy.copy(prep["plan"])
+    for key in ("ptr", "pl", "pu", "dtab"):
+        setattr(plan, key, getattr(plan, key).to(device))
+    block = P.vals_pad.dim() == 4
+    rows, width = P.vals_pad.shape[:2]
+    bs = P.vals_pad.shape[-1] if block else 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vec = (rows, bs) if block else (rows,)
+
+    def randn():
+        return torch.randn(vec, generator=gen, dtype=P.dtype, device=device)
+
+    base = prep["base"].to(device)
+    dinv = invert_diag_blocks(P.diag_blocks) if block else 1.0 / P.diag_vals
+    return {"host": prep["host"], "P": P, "vals": P.vals_pad,
+            "col": padded.col_table(P), "x": randn(), "rhs": randn(),
+            "lower": triangle(P, P.vals_pad, "lower"),
+            "upper": triangle(P, P.vals_pad, "upper"), "dinv": dinv,
+            "plan": plan, "base": base, "ilu": base,
+            "dsrc": invert_diag_blocks(base[P.diagind]) if block else base,
+            "rows": rows, "width": width, "bs": bs}
+
+
+def padded_kernel_cases(op):
+    """(kernel call, twin call) pairs of K9-K11 on ``op``; K10's lower mode
+    also with rhs and x one tensor (the apply's first sweep from zero reads
+    them apart, the bench's chained calls as one)."""
+    v, c, x, r = op["vals"], op["col"], op["x"], op["rhs"]
+    lo, up, dinv = op["lower"], op["upper"], op["dinv"]
+    fac = (op["plan"], op["base"], op["ilu"], op["dsrc"])
+    return {
+        "padded_spmv": [(lambda: padded.padded_spmv(v, c, x),
+                         lambda: padded.padded_spmv_ref(v, c, x))],
+        "padded_lower_sweep": [
+            (lambda: padded.padded_lower_sweep(lo, c, x, x),
+             lambda: padded.padded_lower_sweep_ref(lo, c, x, x)),
+            (lambda: padded.padded_lower_sweep(lo, c, r, x),
+             lambda: padded.padded_lower_sweep_ref(lo, c, r, x))],
+        "padded_upper_sweep": [
+            (lambda: padded.padded_upper_sweep(up, c, dinv, r, x),
+             lambda: padded.padded_upper_sweep_ref(up, c, dinv, r, x))],
+        "padded_factor_sweep": [
+            (lambda: padded.padded_factor_sweep(*fac),
+             lambda: padded.padded_factor_sweep_ref(*fac))],
+    }
+
+
+def padded_work(name: str, op: dict, isz: int) -> tuple:
+    """(bytes, operations) of one call of K9-K11 on ``op``: every padded
+    slot's value (bs² elements) and int32 id, each vector read once and
+    the output written once (K10's upper mode also reads the inverted
+    diagonal); K11 reads base and iterate and writes the result per entry,
+    its int32 ptr and divisor ids, two int32 ids per real pair, and the
+    block divisors once (the scalar's are the iterate, already counted)."""
+    n, W, bs = op["rows"], op["width"], op["bs"]
+    b2 = bs * bs
+    vec, slots = n * bs * isz, n * W * (b2 * isz + 4)
+    if name == "padded_spmv":
+        return slots + 2 * vec, 2 * n * W * b2
+    if name == "padded_lower_sweep":
+        return slots + 3 * vec, 2 * n * W * b2 + n * bs
+    if name == "padded_upper_sweep":
+        return slots + 3 * vec + n * b2 * isz, \
+            2 * n * W * b2 + n * bs + (2 * b2 - bs if bs > 1 else 1) * n
+    plan = op["plan"]
+    nnz, npairs = plan.nnz, plan.pl.shape[0]
+    nlower = int((plan.dtab >= 0).sum())
+    src = plan.nsrc * b2 * isz if bs > 1 else 0
+    return (3 * nnz * b2 * isz + (2 * nnz + 1) * 4 + 8 * npairs + src,
+            npairs * 2 * b2 * bs + nlower * (b2 * (2 * bs - 1) if bs > 1
+                                             else 1))
+
+
+def _sparse_of(op, part: str | None = None):
+    """The padded matrix (or its strictly lower part) as a CUDA sparse CSR
+    or BSR tensor, row by row in the padded slots' order."""
+    P = op["P"]
+    keep = P.colind < P.colind.shape[0]
+    if part == "lower":
+        keep = P.lower_mask
+    rows = keep.sum(1)
+    crow = torch.zeros(rows.shape[0] + 1, dtype=torch.int64,
+                       device=rows.device)
+    crow[1:] = torch.cumsum(rows, 0)
+    vals = P.vals_pad[keep] if part is None else op["lower"][keep]
+    size = (op["rows"] * op["bs"],) * 2
+    if op["bs"] == 1:
+        return torch.sparse_csr_tensor(crow, P.colind[keep], vals, size=size)
+    return torch.sparse_bsr_tensor(crow, P.colind[keep], vals, size=size)
+
+
+def padded_library(name: str, op):
+    """The one PyTorch call computing K9's function (``torch.mv`` on the
+    CUDA CSR/BSR tensor of the same matrix) or K10's lower mode's
+    (``torch.addmv`` with its strictly lower part), else None; a BSR
+    tensor this torch refuses there is timed in its CSR form (said on a
+    line of its own).  Held to 1e-4 relative against the twin."""
+    if name not in ("padded_spmv", "padded_lower_sweep"):
+        return None
+    lower = name == "padded_lower_sweep"
+    A = _sparse_of(op, "lower" if lower else None)
+    x, r = op["x"].reshape(-1), op["rhs"].reshape(-1)
+    if lower:
+        want = padded.padded_lower_sweep_ref(op["lower"], op["col"],
+                                             op["rhs"], op["x"])
+
+        def call(M):
+            return torch.addmv(r, M, x, alpha=-1)
+    else:
+        want = padded.padded_spmv_ref(op["vals"], op["col"], op["x"])
+
+        def call(M):
+            return torch.mv(M, x)
+    form = "csr" if op["bs"] == 1 else "bsr"
+    try:
+        got = call(A)
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"[library] {name} on a CUDA BSR tensor: {exc}; timing the "
+              "CSR form", flush=True)
+        A = A.to_sparse_csr()
+        got = call(A)
+        form = "csr"
+    rel = float((got.reshape(want.shape) - want).abs().max()
+                / want.abs().max())
+    print(f"[library] {name} bs={op['bs']} yardstick: torch."
+          f"{'addmv' if lower else 'mv'} on a CUDA {form} tensor, relative "
+          f"difference to the twin {rel}", flush=True)
+    if rel > 1e-4:
+        fail(f"the library call differs from {name}'s twin by {rel}")
+    return lambda: call(A)
+
+
+def check_padded_kernels(label: str, prep: dict, dtype, seed: int,
+                         timed_run: bool, device="cuda") -> dict:
+    """K9-K11 against their twins on ``prep``'s matrix on the card, each
+    bitwise (the kernels round as their twins do), and with ``timed_run``
+    timed with their bounds, twins and library calls; returns per-kernel
+    records."""
+    op = padded_operands(prep, device, seed)
+    shape = (f"{label} n={op['rows']} W={op['width']} bs={op['bs']} "
+             f"{str(dtype)[6:]}")
+    out = {}
+    for name, cases in padded_kernel_cases(op).items():
+        rec = compare(name, shape, cases, dtype)
+        if rec["max_abs_err"] != 0.0:
+            fail(f"{name} {shape}: not bitwise equal to its twin ({rec})")
+        rec["shape"] = shape
+        if timed_run:
+            kernel, twin = cases[-1]
+            timed(rec, name, kernel, twin,
+                  *padded_work(name, op, dtype.itemsize), dtype,
+                  padded_library(name, op))
+        out[name] = rec
+        print(f"[kernel] {name} {shape}: "
+              + " ".join(f"{k}={v}" for k, v in rec.items()), flush=True)
+    return out
+
+
+def check_all_padded_kernels(A, B) -> dict:
+    """K9-K11 at the padded paths' shapes (the [padded-main] and
+    [padded-block-main] host systems, f32, timed), then in f64 (48³
+    scalar, bs = 4 g = 24 block) and at bs = 5 (g = 48, f32); the scalar
+    records carry the block ones under ``block``."""
+    recs = check_padded_kernels("padded-main", padded_prep(A),
+                                torch.float32, 41, True)
+    torch.cuda.empty_cache()
+    brecs = check_padded_kernels("padded-block-main", padded_prep(B),
+                                 torch.float32, 42, True)
+    torch.cuda.empty_cache()
+    A64, _, _ = poisson3d_system((CHECK_NPTS,) * 3)
+    B64, _ = block_system(BLOCK_CHECK_G, BLOCK_BS, np.float64, seed=43)
+    B5, _ = block_system(PADDED_BS5_G, 5, np.float32, seed=44)
+    for label, M, dtype in (("f64", A64, torch.float64),
+                            ("f64 block", B64, torch.float64),
+                            ("bs=5", B5, torch.float32)):
+        check_padded_kernels(label, padded_prep(M), dtype, 45, False)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share", "max_abs_err", "shape")
+    for name, rec in recs.items():
+        rec["block"] = {k: brecs[name][k] for k in keys}
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 brecs[name]["max_abs_err"])
+    torch.cuda.empty_cache()
+    return recs
+
+
 def true_relres(A, b, x: torch.Tensor) -> float:
     """‖b − A x‖/‖b‖ on the host in float64."""
     sp = A.to_scipy().astype(np.float64)
@@ -828,6 +1083,34 @@ def block_system(g: int, bs: int, dtype, seed: int):
     x_ref = rng.standard_normal(B.nrows)
     b = (B.to_scipy() @ x_ref).astype(dtype)
     return B, b
+
+
+def ilu_padded_counts(prec, iters: int, spmv: int) -> dict:
+    """K9-K11 launches of one padded ILU(0) solve of ``iters`` BiCGSTAB
+    iterations: K9 once per SpMV (``spmv``); K10 ``napplysweeps`` times
+    per mode per apply, two applies per iteration, or, for a SEQUENTIAL
+    apply, once per level of each triangle (the wavefront solves run one
+    sweep per level); K11 once per factor sweep, none for the SEQUENTIAL
+    factor (torch's slot schedule)."""
+    applies = 2 * iters
+    if prec.napplysweeps == SEQUENTIAL:
+        _, nlow, _, nup = prec._levels
+        low, up = applies * nlow, applies * nup
+    else:
+        low = up = applies * prec.napplysweeps
+    return {"padded_spmv": spmv, "padded_lower_sweep": low,
+            "padded_upper_sweep": up,
+            "padded_factor_sweep": 0 if prec.nbuildsweeps == SEQUENTIAL
+            else prec.nbuildsweeps}
+
+
+def expect_padded(label: str, counts: dict, want: dict) -> None:
+    """Each of K9-K11 launched exactly as ``want`` says (absent: never);
+    the other kernels are left to the caller."""
+    for name in PADDED:
+        if counts[name] != want.get(name, 0):
+            fail(f"{label}: {name} launched {counts[name]} times, expected "
+                 f"{want.get(name, 0)}")
 
 
 def expect_launches(label: str, counts: dict, want: dict) -> None:
@@ -930,13 +1213,18 @@ def operator(ctx):
     return lambda v: spmv(D, v)
 
 
-def main_path():
-    """The bench's scalar solve through the user entry point; returns the
-    kernel launches it made, its iterations and the host system."""
+def main_system():
+    """The bench's scalar system (160³ uniform Poisson, f32) and the host
+    seconds it took."""
     t0 = time.perf_counter()
     A, b, _ = poisson3d_system((MAIN_NPTS,) * 3, dist="uniform")
     A, b = A.astype(np.float32), b.astype(np.float32)
-    t_host = time.perf_counter() - t0
+    return A, b, time.perf_counter() - t0
+
+
+def main_path(A, b, t_host: float):
+    """The bench's scalar solve through the user entry point; returns the
+    kernel launches it made, its iterations and the host system."""
     rec, _ = run_main("main", A, b, t_host, {"n": A.nrows, "nnz": A.nnz})
     # the plain factor route below JAX's gate (R4): K8 once per sweep, no
     # K3/K4
@@ -947,13 +1235,18 @@ def main_path():
     return rec["launches"], rec, A, b
 
 
-def block_main_path():
-    """The bench's block size on the g=128 block band through the user
-    entry point, in float32 and with bfloat16 factors ([block-mixed]);
-    returns the kernel launches they made and the host system."""
+def block_main_system():
+    """The block main path's host system (bs = 4 on the g = 128 block
+    band, f32) and the host seconds it took."""
     t0 = time.perf_counter()
     B, b = block_system(BLOCK_G, BLOCK_BS, np.float32, seed=7)
-    t_host = time.perf_counter() - t0
+    return B, b, time.perf_counter() - t0
+
+
+def block_main_path(B, b, t_host: float):
+    """The bench's block size on the g=128 block band through the user
+    entry point, in float32 and with bfloat16 factors ([block-mixed]);
+    returns the kernel launches they made."""
     rec, _ = run_main("block-main", B, b, t_host,
                       {"bs": B.bs, "nb": B.nbrows, "n": B.nrows,
                        "nnzb": B.nnzb}, ILU44_OPTS)
@@ -983,18 +1276,21 @@ def block_main_path():
         "solve_ms_steady_mixed_vs_f32": [1e3 * mrec["solve_s"],
                                          1e3 * rec["solve_s"]]}), flush=True)
     torch.cuda.empty_cache()
-    launches = {k: v + mrec["launches"][k] for k, v in rec["launches"].items()}
-    return launches, B, b
+    return {k: v + mrec["launches"][k] for k, v in rec["launches"].items()}
 
 
 def device_independence(label: str, A, b, opts=None, case: str = "",
                         rtol: float = 1e-10, route: str = "",
-                        iters_tol: int = 0) -> dict:
+                        iters_tol: int = 0, padded_want=None) -> dict:
     """Same f64 solve on the card and on the CPU twins: iterations within
     ``iters_tol`` (the same, by default), x within 1e-8 and, given
-    ``route``, the card's device storage of that type."""
+    ``route``, the card's device storage of that type; given
+    ``padded_want(prec, iters)``, the card's solve launched K9-K11
+    exactly that often."""
     opts = dict(MAIN_OPTS if opts is None else opts, rtol=rtol)
+    _cuda.reset_launches()
     xg, ig, ctx = solve(A, b, opts, device="cuda")
+    counts = dict(_cuda.launches)
     xc, ic, _ = solve(A, b, opts, device="cpu")
     xg = xg.cpu()
     rel = float(torch.linalg.norm(xg - xc) / torch.linalg.norm(xc))
@@ -1005,9 +1301,13 @@ def device_independence(label: str, A, b, opts=None, case: str = "",
            "converged": [ig.converged, ic.converged], "x_rel_diff": rel,
            "relres_true_cuda": true_relres(A, b, xg),
            "route": f"{type(mat).__name__} + {type(ctx.prec).__name__}"}
+    if padded_want is not None:
+        rec["padded_launches"] = {k: counts[k] for k in PADDED}
     if case:
         label = f"{label}] [{case}"
     print(f"[{label}] " + json.dumps(rec), flush=True)
+    if padded_want is not None:
+        expect_padded(label, counts, padded_want(ctx.prec, ig.iters))
     if not (ig.converged and ic.converged):
         fail(f"{label}: f64 solve did not converge: {rec}")
     if route and not rec["route"].startswith(f"{route} "):
@@ -1037,12 +1337,15 @@ def device_independence_cases() -> None:
 def padded_path(label: str, A, b, main_iters: int | None):
     """Solve the host system through ``solve`` with PADDED_OPTS (padded
     CSR/BSR, ILU(0)) on the default device and check it: converged, true
-    relres, no K1-K6 launch and, given ``main_iters``, the banded path's
-    iteration count within one.  Prints the host set-up seconds (pad,
-    upload, symbolic pass) and returns the record and the context."""
+    relres, K9-K11 launched exactly as the iterations and sweeps say and
+    no K1-K8, and, given ``main_iters``, the banded path's iteration count
+    within one.  Prints the host set-up seconds (pad, upload, symbolic
+    pass) and returns the record and the context."""
     rec, ctx = run_main(label, A, b, 0.0,
                         {"n": A.nrows, "host_system": "reused"}, PADDED_OPTS)
-    expect_launches(label, rec["launches"], {})
+    it = rec["iters"]
+    expect_launches(label, rec["launches"],
+                    ilu_padded_counts(ctx.prec, it, 2 * it + 1))
     if main_iters is not None and abs(rec["iters"] - main_iters) > 1:
         fail(f"{label}: {rec['iters']} iterations, the banded path took "
              f"{main_iters}")
@@ -1071,16 +1374,20 @@ def torch_mv_operand(A, device):
 
 
 def padded_op_times(label: str, A, ctx) -> dict:
-    """Device µs of one padded SpMV, one factor sweep and one apply of the
-    solve's operator (torch operations, no hand-written kernel), beside the
-    least bytes each must move over the memory rate, and ``torch.mv`` on the
-    same CUDA CSR/BSR matrix."""
+    """Device µs of one padded SpMV (K9), one factor sweep (K11, and for
+    blocks the torch inverse of the diagonal blocks it divides by, also
+    timed alone as ``divisors``) and one apply (four K10 sweeps of each
+    mode) of the solve's operator, beside the least bytes each must move
+    over the memory rate, and ``torch.mv`` on the same CUDA CSR/BSR
+    matrix."""
     prec = ctx.prec
     D = prec.mat
     bs, isz = prec.block_size, D.dtype.itemsize
     nb, W = D.pos.shape
     nnz, b2 = D.nnz_total, bs * bs
-    P = prec.symbolic.lowerp.shape[1]
+    plan = prec.symbolic.plan
+    npairs = plan.pl.shape[0]
+    nlower = int((plan.dtab >= 0).sum())
     napply = prec.napplysweeps
     gen = torch.Generator(device="cuda").manual_seed(11)
     x = torch.randn((nb, bs) if bs > 1 else (nb,), generator=gen,
@@ -1093,28 +1400,32 @@ def padded_op_times(label: str, A, ctx) -> dict:
     lib = torch_mv_operand(A, "cuda")
     rel = float((torch.mv(lib, xf) - mv(D, x).reshape(-1)).abs().max()
                 / mv(D, x).abs().max())
-    # operations per entry: a pair product (bs×bs matmul) and the lower
-    # entries' division (a product with the inverted diagonal block), and
-    # per row the diagonal's inverse
-    pair = 2 * b2 * bs - b2 if bs > 1 else 2
-    lowered = pair if bs > 1 else 1
-    gj = gj_flops(bs) if bs > 1 else 1
+    # operations: a pair product (bs×bs matmul and its accumulation), the
+    # lower entries' division (a product with the inverted diagonal
+    # block), and per row the diagonal's inverse
+    pair = 2 * b2 * bs if bs > 1 else 2
+    lowered = b2 * (2 * bs - 1) if bs > 1 else 1
+    gj = gj_flops(bs) if bs > 1 else 0
+    slots = nb * W * (b2 * isz + 4)
     ops = {
-        # values and column ids of every padded slot, x once, y once
-        "spmv": (lambda: mv(D, x), nb * W * (b2 * isz + 4) + 2 * nb * bs * isz,
+        # values and int32 ids of every padded slot, x once, y once
+        "spmv": (lambda: mv(D, x), slots + 2 * nb * bs * isz,
                  2 * nb * W * b2, lambda: torch.mv(lib, xf)),
-        # base, ilu and the result per entry, its P pair ids twice, column,
-        # lower flag, and the diagonal positions
+        # base, iterate and result per entry, its int32 ptr and divisor
+        # ids, two int32 ids per pair; blocks: the diagonal blocks read,
+        # inverted and read back
         "factor_sweep": (lambda: sweep(ilu),
-                         nnz * (3 * b2 * isz + 8 * P + 5) + nb * 4,
-                         nnz * (P * pair + lowered) + nb * gj,
-                         None),
-        # padded factor values, column ids and both masks once, r, the
-        # diagonal inverse and z
-        "apply": (lambda: prec.apply(x), nb * W * (b2 * isz + 6)
-                  + nb * (2 * bs + b2) * isz,
+                         3 * nnz * b2 * isz + (2 * nnz + 1) * 4 + 8 * npairs
+                         + (3 * nb * b2 * isz if bs > 1 else 0),
+                         npairs * pair + nlower * lowered + nb * gj, None),
+        # K10 reads both masked triangles (values and ids) and the
+        # diagonal inverse once, r and z
+        "apply": (lambda: prec.apply(x), 2 * slots + nb * (2 * bs + b2) * isz,
                   2 * napply * 2 * nb * W * b2, None),
     }
+    if bs > 1:
+        ops["divisors"] = (lambda: prec._divisors(ilu), 2 * nb * b2 * isz,
+                           nb * gj, None)
     out = {"torch_mv_rel_diff": rel}
     for name, (fn, nbytes, flops, library) in ops.items():
         rec = {"ms": cuda_ms(fn)[0]}
@@ -1122,7 +1433,7 @@ def padded_op_times(label: str, A, ctx) -> dict:
         rec["library_ms"] = None if library is None else cuda_ms(library)[0]
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         out[name] = rec
-    print(f"[{label}] torch ops: " + json.dumps(out), flush=True)
+    print(f"[{label}] kernel ops: " + json.dumps(out), flush=True)
     if rel > TOL[D.dtype] * 10:
         fail(f"{label}: torch.mv differs from the padded SpMV by {rel}")
     return out
@@ -1139,6 +1450,7 @@ def tf32_check(ctx) -> None:
                     device="cuda")
     sweep = prec.factor_sweep_fn(D.flat_vals())
     got = {}
+    _cuda.reset_launches()
     for allow in (True, False):
         torch.backends.cuda.matmul.allow_tf32 = allow
         got[allow] = (bspmv(D, x), sweep(prec.state.ilu))
@@ -1149,6 +1461,8 @@ def tf32_check(ctx) -> None:
           f"equal with allow_tf32 True and False: {same}", flush=True)
     if not all(same):
         fail(f"[tf32] results depend on the TF32 flag: {same}")
+    expect_launches("tf32", dict(_cuda.launches),
+                    {"padded_spmv": 2, "padded_factor_sweep": 2})
 
 
 def permuted(npts: int):
@@ -1168,33 +1482,46 @@ def padded_device_independence() -> None:
     rounding grows: reordering the dot's sum alone, on the CPU, moves x by
     up to 2.4e-10 and, near rtol 1e-10, the residual history by up to 85 %
     (so the stopping step).  At rtol 1e-8 every case stops at least 6 %
-    below the threshold and one step above it."""
+    below the threshold and one step above it.  Each card solve launches
+    K9-K11 exactly as its route says: the ILU(0) rule of
+    ``ilu_padded_counts``, K9 alone for Jacobi, none on DIA."""
+    def ilu_rule(prec, it):
+        return ilu_padded_counts(prec, it, 2 * it + 1)
+
+    def spmv_only(prec, it):
+        return {"padded_spmv": 2 * it + 1}
+
+    def none(prec, it):
+        return {}
+
     A, b, _ = poisson3d_system((CHECK_NPTS,) * 3)
     ilu = dict(ILU44_OPTS, prefer_dia=False)
-    cases = [("ilu0 4,4", A, b, ilu, "PaddedCSR"),
+    cases = [("ilu0 4,4", A, b, ilu, "PaddedCSR", ilu_rule),
              ("seqilu0", A, b, dict(ilu, blasted_pc_type="seqilu0"),
-              "PaddedCSR"),
+              "PaddedCSR", ilu_rule),
              ("jacobi padded", A, b, dict(ilu, blasted_pc_type="jacobi"),
-              "PaddedCSR"),
-             ("default options", A, b, {"rtol": 1e-10}, "DiaMatrix")]
+              "PaddedCSR", spmv_only),
+             ("default options", A, b, {"rtol": 1e-10}, "DiaMatrix", none)]
     B, bb = block_system(BLOCK_CHECK_G, BLOCK_BS, np.float64, seed=9)
-    cases.append(("block ilu0 4,4", B, bb, ilu, "PaddedBSR"))
+    cases.append(("block ilu0 4,4", B, bb, ilu, "PaddedBSR", ilu_rule))
     # RCM bands the permuted 8³ grid into 105 diagonals (K1 on all of
     # them); the 46³ one it leaves past the 128 of the route's limit
     Ap, bp = permuted(10)
     cases.append(("permuted 10, RCM to DIA", Ap, bp, ILU44_OPTS,
-                  "DiaMatrix"))
+                  "DiaMatrix", none))
     Ap, bp = permuted(CHECK_NPTS)
     cases.append(("permuted 48, RCM to padded", Ap, bp, ILU44_OPTS,
-                  "PaddedCSR"))
-    for name, M, rhs, opts, route in cases:
+                  "PaddedCSR", ilu_rule))
+    for name, M, rhs, opts, route, rule in cases:
         device_independence("padded-device-independence", M, rhs, opts,
-                            case=name, rtol=1e-8, route=route)
+                            case=name, rtol=1e-8, route=route,
+                            padded_want=rule)
 
 
-def check_all_kernels() -> dict:
+def check_all_kernels(A, B) -> dict:
     """Every kernel against its twin at each checked shape; the timed
-    records of the main paths' shapes."""
+    records of the main paths' shapes (K9-K11 on the padded forms of the
+    host systems ``A`` and ``B`` of [main] and [block-main])."""
     # K1/K2 and K8 timed at [main]'s 160³; K3/K4, which only
     # [main-compressed] launches, at its 288³ (checked at 160³ as well)
     shapes = check_kernels(MAIN_NPTS - 2, torch.float32, 1,
@@ -1215,6 +1542,8 @@ def check_all_kernels() -> dict:
     check_block_kernels(96, 5, torch.float32, 4, timed_run=False)
     check_block_kernels(BLOCK_CHECK_G, BLOCK_BS, torch.float64, 5,
                         timed_run=False)
+    torch.cuda.empty_cache()
+    shapes.update(check_all_padded_kernels(A, B))
     return shapes
 
 
@@ -1319,17 +1648,21 @@ def amg_main(A, b):
 
 def cut_solve(label: str, A, b, opts: dict, route: str, want: dict):
     """One solve of a phase cut in size, through ``solve`` on the card:
-    converged, true relres ≤ 1.1·rtol, the route, the kernels; prints the
-    host set-up (conversion and upload), first factor (with any symbolic
-    pass), steady factor and solve seconds.  Returns the context."""
+    converged, true relres ≤ 1.1·rtol, the route, the kernels (each rule
+    of ``want`` a rule of ``expected`` or a function of the preconditioner
+    and the iterations); prints the host set-up (conversion and upload),
+    first factor (with any symbolic pass), steady factor and solve
+    seconds.  Returns the context."""
     opts = dict(opts, rtol=KRYLOV_RTOL, maxiter=2000)
     rec, ctx = run_main(label, A, b, 0.0, {"n": A.nrows}, opts,
                         relres_max=KRYLOV_RELRES, reps=2)
     got = f"{type(ctx.prec.mat).__name__} + {type(ctx.prec).__name__}"
     if got != route:
         fail(f"{label}: took {got}, expected {route}")
+    it = rec["iters"]
     expect_launches(label, rec["launches"],
-                    {k: expected(v, rec["iters"]) for k, v in want.items()})
+                    {k: v(ctx.prec, it) if callable(v) else expected(v, it)
+                     for k, v in want.items()})
     setup = {"setup_s": rec["solve_call_s_first"] - rec["factor_s_first"]
              - rec["solve_s_first"],
              "factor_s_first": rec["factor_s_first"],
@@ -1344,13 +1677,20 @@ def level_sgs_phase() -> None:
     full-size masked update per level, each way (190 levels of the 7-point
     64³ grid; 484 at 162³), so one apply at 160³ would be thousands of
     launches.  Scalar on DIA and on padded CSR, block (bs = 4, 64³ block
-    grid) on block-DIA; BiCGSTAB to rtol 1e-5."""
+    grid) on block-DIA; BiCGSTAB to rtol 1e-5.  On padded CSR each
+    level's GS update is one K9 product on the masked triangle: K9 runs
+    the 2·iters + 1 SpMVs and (levels down + levels up) per apply."""
     A, b = seeded_poisson(CUT_NPTS, np.float32)
     opts = {"ksp_type": "bicgstab", "blasted_pc_type": "level_sgs"}
     cut_solve("level-sgs] [dia", A, b, opts,
               "DiaMatrix + LevelSGSPreconditioner", {"dia_spmv": "bicgstab"})
+
+    def k9(prec, it):
+        _, nlow, _, nup = prec._levels
+        return 2 * it + 1 + 2 * it * (nlow + nup)
+
     cut_solve("level-sgs] [padded csr", A, b, dict(opts, prefer_dia=False),
-              "PaddedCSR + LevelSGSPreconditioner", {})
+              "PaddedCSR + LevelSGSPreconditioner", {"padded_spmv": k9})
     B, bb = block_system(CUT_NPTS - 2, BLOCK_BS, np.float32, seed=21)
     cut_solve("level-sgs] [block-dia", B, bb, opts,
               "BlockDiaMatrix + BlockLevelSGSPreconditioner",
@@ -1358,19 +1698,23 @@ def level_sgs_phase() -> None:
     torch.cuda.empty_cache()
 
 
+SAI_KERNELS = {"padded_spmv": lambda prec, it: 4 * it + 1}
+
+
 def sai_phase():
     """[sai], cut in size: the SAI symbolic pass is host numpy over
     (n, E, V) int64 tables (E = 25, V = 7 on the 7-point stencil), about
     5.7 GB each at n = 4.1 M and several of them.  Scalar SAI and ISAI on
     padded CSR at 64³; block SAI and ISAI (bs = 4) on padded BSR at
-    g = 48.  BiCGSTAB to rtol 1e-5.  Returns the block SAI context (for
+    g = 48.  BiCGSTAB to rtol 1e-5; K9 runs the 2·iters + 1 SpMVs and the
+    one SAI product of each apply.  Returns the block SAI context (for
     [tf32])."""
     A, b = seeded_poisson(CUT_NPTS, np.float32)
     for pc in ("sai", "isai"):
         ctx = cut_solve(f"sai] [{pc} padded csr", A, b,
                         {"ksp_type": "bicgstab", "blasted_pc_type": pc,
                          "prefer_dia": False},
-                        "PaddedCSR + SAIPreconditioner", {})
+                        "PaddedCSR + SAIPreconditioner", SAI_KERNELS)
         del ctx
     B, bb = block_system(SAI_BLOCK_G, BLOCK_BS, np.float32, seed=22)
     keep = None
@@ -1378,7 +1722,7 @@ def sai_phase():
         ctx = cut_solve(f"sai] [block {pc} padded bsr", B, bb,
                         {"ksp_type": "bicgstab", "blasted_pc_type": pc,
                          "prefer_dia": False},
-                        "PaddedBSR + BlockSAIPreconditioner", {})
+                        "PaddedBSR + BlockSAIPreconditioner", SAI_KERNELS)
         keep = keep or ctx
     torch.cuda.empty_cache()
     return keep
@@ -1755,14 +2099,39 @@ MODE_KERNELS = {"banded-dia": {"dia_spmv": None, "tri_sweep": None,
                               "bdia_upper_sweep": None}}
 
 
+def mode_padded_counts(case, ctx, iters: int) -> dict:
+    """K9-K11 launches of one dry-run mode: the general modes' shard-local
+    ILU(0) on padded storage (per shard K10 ``napply`` times per mode per
+    apply, two applies per BiCGSTAB iteration, and K11 once per factor
+    sweep; their SpMVs are the distributed gathers, no K9); AMG's
+    shard-local SGS smoothers on padded CSR (per shard K9 once per forward
+    and once per backward sweep of each smoother apply, ``npre + npost``
+    applies per smoothed level and cycle, one cycle per CG apply, iters + 1
+    of them); none on the banded modes."""
+    ds = ctx.prec
+    P = ds.mesh.size
+    if case.name in ("ghost-csr", "bsr-allgather"):
+        nbuild, napply = map(
+            int, case.options["blasted_async_sweeps"].split(","))
+        sweeps = P * 2 * napply * iters
+        return {"padded_lower_sweep": sweeps, "padded_upper_sweep": sweeps,
+                "padded_factor_sweep": P * nbuild}
+    if case.name == "amg":
+        s = ds.settings
+        per_apply = (s.npre + s.npost) * len(ds.levels) \
+            * 2 * s.smoother.napplysweeps
+        return {"padded_spmv": P * per_apply * (iters + 1)}
+    return {}
+
+
 def dist_modes() -> None:
     """[dist-modes]: the six modes of the distributed dry run
     (``parallel/dryrun.py``) on four shards of the card, float32, at
     DIST_MODE_SIZES, each through ``solve(..., mesh=...)`` for the dry
     run's two iterations (three CG steps for AMG), asserting its route and
-    the kernels it launches (the general modes and AMG none); then one
-    distributed AMG cycle, bitwise the same with TF32 matmuls allowed and
-    not (C4)."""
+    the kernels it launches (the general modes and AMG exactly their
+    K9-K11, ``mode_padded_counts``); then one distributed AMG cycle,
+    bitwise the same with TF32 matmuls allowed and not (C4)."""
     for name, why in CUTS.items():
         print(f"[dist-modes] [{name}] cut to {why}", flush=True)
     cases = dryrun_cases(DIST_SHARDS, dtype=np.float32, **DIST_MODE_SIZES)
@@ -1779,7 +2148,8 @@ def dist_modes() -> None:
                "launches": {k: v for k, v in _cuda.launches.items() if v}}
         print(f"[dist-modes] [{case.name}] " + json.dumps(rec), flush=True)
         expect_launches(case.name, dict(_cuda.launches),
-                        MODE_KERNELS.get(case.name, {}))
+                        {**MODE_KERNELS.get(case.name, {}),
+                         **mode_padded_counts(case, ctx, info.iters)})
         if case.name in ("banded-dia", "block-dia"):
             # uneven: the last shard holds the identity-padded rows
             shard_twins(f"dist-modes] [{case.name}", ctx.prec,
@@ -2279,8 +2649,10 @@ def mc_topology(mesh) -> dict:
 def mc_kernel(mesh) -> dict:
     """[mc-kernel]: every kernel on every card of the mesh at the f32
     shapes of [kernel] (K1-K4 on the 160³ band, K5, K6 in both modes and
-    the block inverse at bs = 4, g = 128), each held bitwise to its twin on
-    the same card, its launches counted on that card and no other, and its
+    the block inverse at bs = 4, g = 128, K9-K11 on the padded forms of
+    the 160³ Poisson matrix and of the bs = 4 g = 128 block system; the
+    host pad and symbolic pass once, copied to each card), each held
+    bitwise to its twin on the same card, its launches counted on that card and no other, and its
     device time taken on each card (the twin's and the library call's on
     the first card only: they repeat the kernel's work, not the card's).
     Then a call made while the current device is cuda:0, on operands of
@@ -2289,14 +2661,25 @@ def mc_kernel(mesh) -> dict:
     raise.  Returns per-kernel records for the kernels line."""
     g, dtype = MAIN_NPTS - 2, torch.float32
     n, nb, isz = g ** 3, BLOCK_G ** 3, dtype.itemsize
+    A, _, _ = main_system()
+    B, _, _ = block_main_system()
+    preps = (padded_prep(A), padded_prep(B))
+    del A, B
     out = {}
     for dev in mesh.devices:
         _cuda.reset_launches()
         op = band_operands(g, dtype, dev, seed=1)
         bop = block_operands(BLOCK_G, BLOCK_BS, dtype, dev, seed=3)
+        pop, pbop = (padded_operands(p, dev, seed=41) for p in preps)
         npair = len(bop["pair_offs"])
         scalar = kernel_cases(op)
-        cases = {**scalar, **block_kernel_cases(bop)}
+        pcases = padded_kernel_cases(pop)
+        cases = {**scalar, **block_kernel_cases(bop), **pcases}
+        for name, pairs in padded_kernel_cases(pbop).items():
+            rec = compare(name, f"{dev} block", pairs, dtype)
+            if rec["max_abs_err"] != 0.0:
+                fail(f"[mc-kernel] {name} bs={BLOCK_BS} on {dev}: not "
+                     f"bitwise equal to its twin ({rec})")
         for name, pairs in cases.items():
             rec = compare(name, f"{dev}", pairs, dtype)
             if rec["max_abs_err"] != 0.0:
@@ -2305,7 +2688,13 @@ def mc_kernel(mesh) -> dict:
             kernel, twin = pairs[-1]
             with torch.cuda.device(dev):
                 if dev == mesh.first:
-                    if name in scalar:
+                    if name in pcases:
+                        timed(rec, name, kernel, twin,
+                              *padded_work(name, pop, isz), dtype,
+                              padded_library(name, pop))
+                        rec["shape"] = (f"padded-main n={n} "
+                                        f"W={pop['width']} float32")
+                    elif name in scalar:
                         timed(rec, name, kernel, twin,
                               *scalar_work(name, n, isz),
                               dtype, scalar_library(name, op))
@@ -2332,7 +2721,7 @@ def mc_kernel(mesh) -> dict:
         print(f"[mc-kernel] {dev}: all {len(cases)} kernels bitwise equal to "
               f"their twins, launches by card {json.dumps(by_card)}",
               flush=True)
-        del op, bop, scalar, cases
+        del op, bop, pop, pbop, scalar, pcases, cases
         torch.cuda.empty_cache()
     for name, rec in out.items():
         print(f"[mc-kernel] {name}: " + json.dumps(rec), flush=True)
@@ -2506,18 +2895,22 @@ def mc_weak(mesh, one_shard: dict) -> dict:
     return rec
 
 
-def mc_dist_modes(mesh) -> None:
+def mc_dist_modes(mesh) -> dict:
     """[mc-dist-modes]: ``dryrun_multichip`` on the four cards, all six
     modes at [dist-modes]' sizes and f32 (the banded modes at full width),
     mode 6 on the (2, 2) mesh, and the same on four shards of cuda:0: each
     mode's route, the same iterations, x equal to the bit on the banded
     modes (the same kernels on the same shards, reduced in the same order)
     and within MC_MODES_XTOL elsewhere; on the cards each banded mode
-    launches its kernels on every card."""
+    launches its kernels on every card; each run launches K9-K11 exactly
+    as ``mode_padded_counts`` says, on the cards the general route's K10
+    and K11 on every card.  Returns the card runs' K9-K11 launches by
+    card, summed over the modes."""
     P = mesh.size
     for name, why in CUTS.items():
         print(f"[mc-dist-modes] [{name}] cut to {why}", flush=True)
     cases = dryrun_cases(P, dtype=np.float32, **DIST_MODE_SIZES)
+    padded_by_card = {name: {} for name in PADDED}
     for case in cases:
         got = {}
         for key, devs in (("cards", list(mesh.devices)),
@@ -2526,8 +2919,11 @@ def mc_dist_modes(mesh) -> None:
             t0 = time.perf_counter()
             (_, x, info, ctx), = dryrun_multichip(devs, [case])
             ctx.prec.mesh.synchronize()
+            want = mode_padded_counts(case, ctx, info.iters)
+            expect_padded(f"mc-dist-modes {case.name} {key}",
+                          dict(_cuda.launches), want)
             got[key] = {
-                "x": x.cpu(), "iters": info.iters,
+                "x": x.cpu(), "iters": info.iters, "padded_want": want,
                 "route": type(ctx.prec).__name__,
                 "mesh": list(ctx.prec.mesh.shape),
                 "seconds": time.perf_counter() - t0,
@@ -2557,9 +2953,18 @@ def mc_dist_modes(mesh) -> None:
                          f"every card ({c['launches_by_card']})")
         elif not bitwise and rel > MC_MODES_XTOL:
             fail(f"mc-dist-modes {case.name}: x differs by {rel} ({rec})")
+        for k in c["padded_want"]:
+            if set(c["launches_by_card"].get(k, {})) != \
+                    {d.index for d in mesh.devices}:
+                fail(f"mc-dist-modes {case.name}: {k} not launched on "
+                     f"every card ({c['launches_by_card']})")
         if case.name == "mesh-2d" and c["mesh"] != [2, P // 2]:
             fail(f"mc-dist-modes mesh-2d: mesh {c['mesh']}")
+        for name in PADDED:
+            for i, v in c["launches_by_card"].get(name, {}).items():
+                padded_by_card[name][i] = padded_by_card[name].get(i, 0) + v
     torch.cuda.empty_cache()
+    return padded_by_card
 
 
 def main_cards(ncards: int) -> int:
@@ -2603,11 +3008,13 @@ def main_cards(ncards: int) -> int:
     del B, bb
     weak = phase("mc-weak", mc_weak, mesh, main_recs["one shard"],
                  mesh=mesh)
-    phase("mc-dist-modes", mc_dist_modes, mesh, mesh=mesh)
+    modes = phase("mc-dist-modes", mc_dist_modes, mesh, mesh=mesh)
 
-    # the four-card solves are the main path: their launches, by card
+    # the four-card solves are the main path: their launches, by card (the
+    # padded kernels': the general route's and AMG's of [mc-dist-modes])
     by_card = {name: {} for name in REPLACES}
-    for rec in (main_recs["cards"], block_recs["cards"], weak):
+    for rec in (main_recs["cards"], block_recs["cards"], weak,
+                {"launches_by_card": modes}):
         for name, cards in rec["launches_by_card"].items():
             for i, v in cards.items():
                 by_card[name][i] = by_card[name].get(i, 0) + v
@@ -2712,33 +3119,39 @@ def main(argv=None) -> int:
     print(f"[build] native host library: {native.status()} "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
 
-    shapes = phase("kernel", check_all_kernels)
+    A_main, b_main, t_main = main_system()
+    B_main, bb_main, t_block = block_main_system()
+    print(f"[build] host systems: [main] {t_main:.3f} s, [block-main] "
+          f"{t_block:.3f} s", flush=True)
+    shapes = phase("kernel", check_all_kernels, A_main, B_main)
     torch.cuda.empty_cache()
     phase("bench", bench_phase, card)
     torch.cuda.empty_cache()
 
     # each path launched only its own kernels (expect_launches)
-    scalar, main_rec, A_main, b_main = phase("main", main_path)
+    scalar, main_rec, A_main, b_main = phase("main", main_path, A_main,
+                                             b_main, t_main)
     main_iters = main_rec["iters"]
     mixed_counts = phase("mixed", mixed, A_main, b_main, main_rec)
     compressed_counts = phase("main-compressed", main_compressed)
-    block, B_main, bb_main = phase("block-main", block_main_path)
+    block = phase("block-main", block_main_path, B_main, bb_main, t_block)
     phase("device-independence", device_independence_cases)
     B, bb = block_system(BLOCK_CHECK_G, BLOCK_BS, np.float64, seed=8)
     phase("block-device-independence", device_independence,
           "block-device-independence", B, bb)
 
-    # the general path: padded storage, torch gathers, no K1-K6 launch
+    # the general path: padded storage, K9-K11, no K1-K8 launch
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    _, ctx = padded_path("padded-main", A_main, b_main, main_iters)
+    padded_rec, ctx = padded_path("padded-main", A_main, b_main, main_iters)
     padded_op_times("padded-main", A_main, ctx)
     del ctx
     torch.cuda.empty_cache()
     print(f"[phase] padded-main: {time.perf_counter() - t0:.3f} s",
           flush=True)
     t0 = time.perf_counter()
-    _, ctx = padded_path("padded-block-main", B_main, bb_main, None)
+    padded_block_rec, ctx = padded_path("padded-block-main", B_main,
+                                        bb_main, None)
     padded_op_times("padded-block-main", B_main, ctx)
     tf32_check(ctx)
     del ctx
@@ -2775,6 +3188,8 @@ def main(argv=None) -> int:
               + amg_counts[name] + dist_counts[name]
               + dist_block_counts[name] + mixed_counts[name]
               + compressed_counts[name] + newton_counts[name]
+              + padded_rec["launches"][name]
+              + padded_block_rec["launches"][name]
               for name in scalar}
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2786,7 +3201,7 @@ def main(argv=None) -> int:
          **{k: counts[name] if k == "launches" else shapes[name][k]
             for k in keys},
          **{k: shapes[name][k] for k in ("shape", "library_of", "lower_ms",
-                                         "lower_bound_ms")
+                                         "lower_bound_ms", "block")
             if k in shapes[name]}}
         for name in REPLACES]}))
     print(smi)

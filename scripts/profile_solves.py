@@ -21,9 +21,11 @@ one JSON line: the host wall time (between two
 ``torch.cuda.synchronize()``), the device busy time (the union of the
 kernel, copy and memset intervals of the trace), the idle share
 (1 − busy / wall) and the device time by kernel name.  The banded windows
-also name the port's kernels they must run (``named``: calls and device ms
-of K8 in the scalar factor, of K7's two modes in the block apply and
-solve) and fail without them.  It imports nothing of JAX.
+and the padded windows also name the port's kernels they must run
+(``named``: calls and device ms of K8 in the scalar factor, of K7's two
+modes in the block apply and solve; on the padded path K11 in the factor,
+K10's two modes in the apply, and K9 and K10 in the solve) and fail
+without them.  It imports nothing of JAX.
 
 On a machine with four cards,
 
@@ -67,6 +69,12 @@ TOP = 14
 K8 = {"K8 plain_factor_sweep": ("plain_factor_sweep_kernel",)}
 K7 = {"K7 lower": ("bdia_sweep_kernel", "false"),
       "K7 upper": ("bdia_sweep_kernel", "true")}
+K9 = {"K9 padded_spmv": ("padded_spmv_kernel",)}
+K10 = {"K10 lower": ("padded_sweep_kernel", "false"),
+       "K10 upper": ("padded_sweep_kernel", "true")}
+K11 = {"K11 padded_factor_sweep": ("padded_factor_sweep_kernel",)}
+PADDED_NAMED = {"factor_named": K11, "apply_named": K10,
+                "solve_named": {**K9, **K10}}
 
 
 def _trace_events(prof) -> list:
@@ -160,7 +168,7 @@ def window(label: str, fn, sync=torch.cuda.synchronize,
 
 
 def profile_path(label: str, A, b, opts, factor_named=None,
-                 apply_named=None) -> None:
+                 apply_named=None, solve_named=None) -> None:
     x, info, ctx = solve(A, b, opts)
     prec = ctx.prec
     amat = chip_smoke.operator(ctx)
@@ -173,7 +181,7 @@ def profile_path(label: str, A, b, opts, factor_named=None,
     window(f"{label} apply", lambda: prec.apply_flat(bt), named=apply_named)
     window(f"{label} solve", lambda: solver(
         amat, prec.apply_flat, bt, torch.zeros_like(bt), tol=opts["rtol"],
-        maxiter=opts["maxiter"], **kw), named=apply_named)
+        maxiter=opts["maxiter"], **kw), named=solve_named or apply_named)
 
 
 def profile_dist(label: str, A, b, opts, mesh, per_card: bool = False):
@@ -235,7 +243,8 @@ def main(argv=None) -> int:
     profile_path("scalar", A, b, chip_smoke.MAIN_OPTS, factor_named=K8)
     profile_path("mixed scalar", A, b, dict(chip_smoke.MAIN_OPTS,
                                             blasted_apply_dtype="bfloat16"))
-    profile_path("padded scalar", A, b, chip_smoke.PADDED_OPTS)
+    profile_path("padded scalar", A, b, chip_smoke.PADDED_OPTS,
+                 **PADDED_NAMED)
     del A, b
     A, b = chip_smoke.seeded_poisson(chip_smoke.MAIN_NPTS, np.float32)
     gmres, _ = chip_smoke.KRYLOV_CASES[0][1:]
@@ -250,7 +259,8 @@ def main(argv=None) -> int:
                                     np.float32, seed=7)
     profile_path("block", B, bb, chip_smoke.ILU44_OPTS, apply_named=K7)
     torch.cuda.empty_cache()
-    profile_path("padded block", B, bb, chip_smoke.PADDED_OPTS)
+    profile_path("padded block", B, bb, chip_smoke.PADDED_OPTS,
+                 **PADDED_NAMED)
     del B, bb
     torch.cuda.empty_cache()
     A, b = chip_smoke.seeded_poisson(chip_smoke.MAIN_NPTS, np.float32)

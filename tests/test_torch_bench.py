@@ -86,8 +86,8 @@ def test_csr_model_matches_bench_py():
     m = roofline.csr_models(g)
     assert m["bytes_model"] == (2 * W + 2) * g ** 3 * 4
     assert m["nnz"] == g ** 3 * W
-    # the port's own int64 column indices put its working set, at bench.py's
-    # g = 110, under four times the L2: the detail says so
+    # K9 reads bench.py's bytes (int32 column ids), which at bench.py's
+    # g = 110 stay under four times the L2: the detail says so
     assert m["operand_bytes"] < 4 * common.L2_BYTES
 
 
@@ -127,7 +127,7 @@ _BLOCK_HELD = {"bspmv", "bfactor_dinv", "bfactor_u0", "block_inverse",
 HELD = {"scalar": {"dia_spmv", "factor_u0", "factor_lower",
                    "tri_sweep_lower", "tri_sweep_upper"},
         "block4": _BLOCK_HELD, "block5": _BLOCK_HELD,
-        "solve": {"plain_factor_sweep"}}
+        "csr": {"padded_spmv"}, "solve": {"plain_factor_sweep"}}
 
 
 @pytest.mark.parametrize("part,wrapper", [("scalar", "factor_lower_stencil"),
@@ -217,8 +217,9 @@ def test_settings_read_bench_py_knobs():
     s = roofline.Settings.from_env({})
     assert (s.i1, s.i2, s.reps) == (4, 54, 5)
     assert s.parts == roofline.SECTIONS
+    # csr: not bench.py's g = 110, whose data K9 reads from L2 (roofline.py)
     assert (s.scalar_g, s.block_g4, s.block_g5, s.csr_g, s.npts) == \
-        (320, 128, 96, 110, 162)
+        (320, 128, 96, 160, 162)
     s = roofline.Settings.from_env({"BENCH_PARTS": "scalar,solve",
                                     "BENCH_I2": "14"})
     assert s.parts == ("scalar", "solve") and s.i2 == 14
