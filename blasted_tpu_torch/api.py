@@ -51,6 +51,7 @@ from .sparse.bdia import BlockDiaMatrix
 from .sparse.bsr import BSRMatrix
 from .sparse.csr import CSRMatrix
 from .sparse.dia import DiaMatrix, try_dia_from_csr
+from .utils.profiling import annotate, count
 from .utils.timing import PrecTimers, synchronize
 
 __all__ = ["BlastedOptions", "SolverContext", "setup_local_preconditioner",
@@ -222,29 +223,45 @@ def setup_local_preconditioner(A, options=None, *, device=None) -> SolverContext
     ``A`` is a device matrix (DIA, block-DIA, padded CSR or BSR) already
     on its device, or a host CSR/BSR matrix that is put on ``device`` (the
     card, ``"cuda"``, unless given).  ``amg`` takes the host matrix and
-    builds its hierarchy on ``device``."""
-    options = _as_options(options)
-    settings = options.settings()
-    if isinstance(A, DEVICE_FORMS):
-        if device is not None and torch.device(device) != A.device:
-            raise ValueError(f"matrix is on {A.device}, not {device}")
-        D = A
-    elif options.pc_type == "amg":
-        D = A       # the hierarchy is built from the host container
-    else:
-        D = to_device_matrix(A, device="cuda" if device is None else device,
-                             prefer_dia=options.prefer_dia)
-    ctx = SolverContext(options=options)
-    ctx.prec = create_preconditioner(
-        D, settings, device="cuda" if device is None else device)
-    ctx.first_setup_done = True
-    return ctx
+    builds its hierarchy on ``device``.  Counts its calls and host seconds
+    in ``utils.profiling.counters`` (``setup.precond``,
+    ``setup.precond_s``; :func:`compute_preconditioner` adds the first
+    factor's)."""
+    t0 = time.perf_counter()
+    try:
+        options = _as_options(options)
+        settings = options.settings()
+        if isinstance(A, DEVICE_FORMS):
+            if device is not None and torch.device(device) != A.device:
+                raise ValueError(f"matrix is on {A.device}, not {device}")
+            D = A
+        elif options.pc_type == "amg":
+            D = A       # the hierarchy is built from the host container
+        else:
+            D = to_device_matrix(A, device="cuda" if device is None
+                                 else device, prefer_dia=options.prefer_dia)
+        ctx = SolverContext(options=options)
+        ctx.prec = create_preconditioner(
+            D, settings, device="cuda" if device is None else device)
+        ctx.first_setup_done = True
+        return ctx
+    finally:
+        count("setup.precond")
+        count("setup.precond_s", time.perf_counter() - t0)
 
 
 def compute_preconditioner(ctx: SolverContext):
-    """(reference: compute_preconditioner_blasted, blasted_petsc.cpp:403-430)"""
-    with ctx.timers.time_factor(ctx.prec.device):
+    """(reference: compute_preconditioner_blasted, blasted_petsc.cpp:403-430)
+    A ``precond.compute`` span.  A context's first call ends its set-up:
+    its host seconds, the card synchronised at the end, are added to
+    ``utils.profiling.counters["setup.precond_s"]``."""
+    first = ctx.timers.factor_calls == 0
+    t0 = time.perf_counter()
+    with annotate("precond.compute"), \
+            ctx.timers.time_factor(ctx.prec.device):
         info = ctx.prec.compute()
+    if first:
+        count("setup.precond_s", time.perf_counter() - t0)
     if ctx.options.compute_precinfo:
         ctx.infolist.append(info)
     return info

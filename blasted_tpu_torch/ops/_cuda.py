@@ -13,10 +13,13 @@ kernel's registers and spills; the report is kept beside the library as
 Every wrapper launches through :func:`launch`, which counts launches per
 kernel in :data:`launches` and per kernel and card in
 :data:`launches_by_device`, so a run can show that its path went through
-the kernels, and on which card.  ``launch`` takes the device of the call's
-operands and refuses it unless it is the current CUDA device: a kernel
-launched from another card would read the operands over NVLink and still
-compute the right numbers, so only this check can see such a launch.
+the kernels, and on which card, and sums the host nanoseconds each launch
+took in :data:`launch_ns` (always on: two ``perf_counter_ns`` reads and an
+add; the wrappers' operand checks before the call are not in it).
+``launch`` takes the device of the call's operands and refuses it unless
+it is the current CUDA device: a kernel launched from another card would
+read the operands over NVLink and still compute the right numbers, so only
+this check can see such a launch.
 """
 
 from __future__ import annotations
@@ -28,12 +31,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
 
 __all__ = ["kernels_library", "NVCC_FLAGS", "KERNEL_SOURCES", "launches",
-           "launches_by_device", "reset_launches", "launch"]
+           "launches_by_device", "launch_ns", "reset_launches", "launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -90,12 +94,17 @@ launches = dict.fromkeys(KERNEL_SOURCES, 0)
 #: The same launches by kernel, then by the index of the CUDA device each
 #: ran on (``launches_by_device[name][index]``; a card with none is absent).
 launches_by_device = {name: {} for name in KERNEL_SOURCES}
+#: Host nanoseconds in :func:`launch` since the last :func:`reset_launches`,
+#: by kernel, from the device check to the return (the library's build at
+#: its first use left out).
+launch_ns = dict.fromkeys(KERNEL_SOURCES, 0)
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
         launches_by_device[name].clear()
+        launch_ns[name] = 0
 
 
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
@@ -104,17 +113,19 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
     ``device`` is the device of the call's operands; it must be the
     current CUDA device (the wrappers set it), else this raises before
     launching.  A CUDA error raises."""
+    fn = getattr(kernels_library(), entry)   # built at the first use
+    t0 = time.perf_counter_ns()
     current = torch.cuda.current_device()
     if device.type != "cuda" or device.index != current:
         raise RuntimeError(f"{name}: operands on {device}, but the current "
                            f"CUDA device is cuda:{current}")
-    err = getattr(kernels_library(), entry)(
-        *args, torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     launches[name] += 1
     by_card = launches_by_device[name]
     by_card[current] = by_card.get(current, 0) + 1
+    launch_ns[name] += time.perf_counter_ns() - t0
 
 
 def _nvcc() -> str:

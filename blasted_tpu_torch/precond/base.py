@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = ["SolveParams", "Preconditioner", "NoPreconditioner", "PrecInfo"]
 
 
@@ -73,14 +75,16 @@ class Preconditioner:
         flat value array of the padded form's host matrix (CSR ``(nnz,)``,
         BSR ``(nnzb, bs, bs)``) or the band data of DIA ``(k, n)`` and
         block-DIA (``(k, bs², nb)`` or ``(k, nb, bs, bs)``), a tensor or
-        numpy array; call :meth:`compute` afterwards to re-factorize."""
-        if hasattr(self.mat, "with_new_vals"):
-            self.mat = self.mat.with_new_vals(vals)
-        elif hasattr(self.mat, "with_new_data"):
-            self.mat = self.mat.with_new_data(vals)
-        else:
-            raise TypeError(
-                f"{type(self.mat).__name__} has no value-update form")
+        numpy array; call :meth:`compute` afterwards to re-factorize.  A
+        ``precond.update`` span."""
+        with annotate("precond.update"):
+            if hasattr(self.mat, "with_new_vals"):
+                self.mat = self.mat.with_new_vals(vals)
+            elif hasattr(self.mat, "with_new_data"):
+                self.mat = self.mat.with_new_data(vals)
+            else:
+                raise TypeError(
+                    f"{type(self.mat).__name__} has no value-update form")
 
     def set_apply_params(self, params: SolveParams) -> None:
         """(reference: solverops_base.hpp setApplyParams)"""

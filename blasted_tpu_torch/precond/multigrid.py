@@ -38,6 +38,7 @@ import torch
 from ..config import AsyncSolverSettings, PrecType
 from ..ops.spmv import spmv
 from ..sparse.csr import CSRMatrix, as_device
+from ..utils.profiling import annotate
 from .base import Preconditioner, PrecInfo, SolveParams
 
 __all__ = ["AMGSettings", "MultigridPreconditioner", "build_hierarchy",
@@ -290,10 +291,11 @@ class MultigridPreconditioner(Preconditioner):
         numpy); the next :meth:`compute` rebuilds the Galerkin chain and the
         level operators.  Repeated compute() calls without an update keep
         the cached hierarchy."""
-        if isinstance(vals, torch.Tensor):
-            vals = vals.cpu().numpy()
-        self.mat = self.mat.with_vals(np.asarray(vals))
-        self._values_version += 1
+        with annotate("precond.update"):
+            if isinstance(vals, torch.Tensor):
+                vals = vals.cpu().numpy()
+            self.mat = self.mat.with_vals(np.asarray(vals))
+            self._values_version += 1
 
     def compute(self) -> PrecInfo:
         if not self.levels or self._built_version != self._values_version:

@@ -25,6 +25,7 @@ import torch
 
 from ..sparse.bsr import BSRMatrix
 from ..sparse.csr import CSRMatrix
+from ..utils.profiling import annotate
 
 __all__ = ["Reordering", "RCMReordering", "MaxMatchingReordering",
            "MaxDiagonalScaling", "ReorderedILU0Preconditioner",
@@ -213,9 +214,10 @@ class ReorderedILU0Preconditioner:
     def update_values(self, vals):
         """New values for the original (unpermuted) matrix; the next
         compute() recomputes the reordering and re-factorizes."""
-        if isinstance(vals, torch.Tensor):
-            vals = vals.cpu().numpy()
-        self.A = self.A.with_vals(vals)
+        with annotate("precond.update"):
+            if isinstance(vals, torch.Tensor):
+                vals = vals.cpu().numpy()
+            self.A = self.A.with_vals(vals)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         if self._rp is not None:

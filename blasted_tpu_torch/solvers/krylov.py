@@ -21,15 +21,22 @@ vectors only through arithmetic and the ``ops.blas1`` helpers ``dot``,
 arrays.  Every scalar stays a 0-d tensor of the vector's dtype on the
 vector's device (the first shard's), as in JAX: host float64 scalars
 would change float32 results.
+
+Each method call is a ``krylov.solve`` span, each iteration (Arnoldi step
+in GMRES) a ``krylov.iter`` span holding the ``sync.flag`` span of its
+host read, and the reads that build ``SolveInfo`` a ``sync.result`` span
+(``utils/profiling.py``; recorded only while a profiler records).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..ops.blas1 import dot, guard_zero, norm2, where, zeros_like
+from ..utils.profiling import annotate
 
 __all__ = ["SolveInfo", "richardson", "bicgstab", "gcr", "cg", "gmres"]
 
@@ -47,31 +54,47 @@ class SolveInfo(NamedTuple):
     breakdown: bool = False
 
 
+def _solve_span(method):
+    """Run ``method`` inside a ``krylov.solve`` span."""
+    @functools.wraps(method)
+    def spanned(*args, **kwargs):
+        with annotate("krylov.solve"):
+            return method(*args, **kwargs)
+    return spanned
+
+
 def _finfo(b: torch.Tensor):
     finfo = torch.finfo(b.dtype)
     return finfo.eps, finfo.tiny
 
 
+@_solve_span
 def richardson(amat: Callable, prec: Callable, b: torch.Tensor,
                x0: torch.Tensor, tol: float = 1e-6, maxiter: int = 500):
     """Preconditioned Richardson iteration (reference: tests/solvers.cpp
     RichardsonSolver::solve, :90-133).  A step counts only when it is not
-    the converged one; the final residual is recomputed for the report."""
+    the converged one (that pass is a ``krylov.iter`` span all the same);
+    the final residual is recomputed for the report."""
     bnorm = norm2(b)
     x, step, done = x0, 0, False
     while step < maxiter and not done:
-        s = b - amat(x)
-        resnorm = norm2(s)
-        conv = resnorm / bnorm < tol
-        dx = prec(s)
-        x = where(conv, x, x + dx)
-        done = bool(conv)                        # one host sync per step
-        step += 0 if done else 1
+        with annotate("krylov.iter"):
+            s = b - amat(x)
+            resnorm = norm2(s)
+            conv = resnorm / bnorm < tol
+            dx = prec(s)
+            x = where(conv, x, x + dx)
+            with annotate("sync.flag"):
+                done = bool(conv)                # one host sync per step
+            step += 0 if done else 1
     resnorm = norm2(b - amat(x))
-    return x, SolveInfo(converged=bool(resnorm / bnorm < tol), iters=step,
-                        resnorm=float(resnorm), bnorm=float(bnorm))
+    with annotate("sync.result"):
+        info = SolveInfo(converged=bool(resnorm / bnorm < tol), iters=step,
+                         resnorm=float(resnorm), bnorm=float(bnorm))
+    return x, info
 
 
+@_solve_span
 def bicgstab(amat: Callable, prec: Callable, b: torch.Tensor,
              x0: torch.Tensor, tol: float = 1e-6, maxiter: int = 500):
     """Right-preconditioned BiCGSTAB, same update sequence and iteration
@@ -99,47 +122,55 @@ def bicgstab(amat: Callable, prec: Callable, b: torch.Tensor,
     done = False
 
     while step < maxiter and not done:
-        rho = dot(rhat, r)
-        # breakdown: rhat ⟂ r structurally (an exact zero dot); an eps-scale
-        # relative threshold would false-fire on f32 rounding at large n
-        brk = torch.abs(rho) <= eps * eps * nrhat * norm2(r) + 100 * tiny
-        brk = brk | (torch.abs(rhoold * omega) <= 100 * tiny)
-        # a zero denominator is a breakdown: guard_zero keeps the quotient
-        # finite and brk discards the step
-        beta = rho * alpha / guard_zero(rhoold * omega)
-        p = r + beta * p - beta * omega * v
-        y = prec(p)
-        v = amat(y)
-        rv = dot(rhat, v)
-        brk = brk | (torch.abs(rv) <= eps * eps * nrhat * norm2(v) + 100 * tiny)
-        alpha = rho / guard_zero(rv)
-        rs = r - alpha * v                       # 's' of the algorithm
-        z = prec(rs)
-        t = amat(z)
-        tt = dot(t, t)
-        # t ≈ 0: the "lucky" half-step breakdown — x + αy is still valid
-        lucky = tt <= 100 * tiny
-        omega = torch.where(lucky, torch.zeros_like(tt),
-                            dot(t, rs) / guard_zero(tt))
-        x_new = x + alpha * y + omega * z
-        r_new = rs - omega * t
-        resnorm_new = norm2(r_new)
-        # on breakdown keep the previous finite iterate
-        x = where(brk, x, x_new)
-        r = where(brk, r, r_new)
-        resnorm = torch.where(brk, resnorm, resnorm_new)
-        conv = resnorm / bnorm < tol
-        breakdown = breakdown | brk | (lucky & ~conv)
-        rhoold = rho
-        step += 1
-        done = bool(conv | brk | lucky)          # one host sync per step
+        with annotate("krylov.iter"):
+            rho = dot(rhat, r)
+            # breakdown: rhat ⟂ r structurally (an exact zero dot); an
+            # eps-scale relative threshold would false-fire on f32 rounding
+            # at large n
+            brk = torch.abs(rho) <= eps * eps * nrhat * norm2(r) + 100 * tiny
+            brk = brk | (torch.abs(rhoold * omega) <= 100 * tiny)
+            # a zero denominator is a breakdown: guard_zero keeps the
+            # quotient finite and brk discards the step
+            beta = rho * alpha / guard_zero(rhoold * omega)
+            p = r + beta * p - beta * omega * v
+            y = prec(p)
+            v = amat(y)
+            rv = dot(rhat, v)
+            brk = brk | (torch.abs(rv)
+                         <= eps * eps * nrhat * norm2(v) + 100 * tiny)
+            alpha = rho / guard_zero(rv)
+            rs = r - alpha * v                   # 's' of the algorithm
+            z = prec(rs)
+            t = amat(z)
+            tt = dot(t, t)
+            # t ≈ 0: the "lucky" half-step breakdown — x + αy is still
+            # valid
+            lucky = tt <= 100 * tiny
+            omega = torch.where(lucky, torch.zeros_like(tt),
+                                dot(t, rs) / guard_zero(tt))
+            x_new = x + alpha * y + omega * z
+            r_new = rs - omega * t
+            resnorm_new = norm2(r_new)
+            # on breakdown keep the previous finite iterate
+            x = where(brk, x, x_new)
+            r = where(brk, r, r_new)
+            resnorm = torch.where(brk, resnorm, resnorm_new)
+            conv = resnorm / bnorm < tol
+            breakdown = breakdown | brk | (lucky & ~conv)
+            rhoold = rho
+            step += 1
+            with annotate("sync.flag"):
+                done = bool(conv | brk | lucky)  # one host sync per step
 
-    resnorm_f, bnorm_f = float(resnorm), float(bnorm)
-    return x, SolveInfo(converged=bool(resnorm / bnorm < tol), iters=step,
-                        resnorm=resnorm_f, bnorm=bnorm_f,
-                        breakdown=bool(breakdown))
+    with annotate("sync.result"):
+        resnorm_f, bnorm_f = float(resnorm), float(bnorm)
+        info = SolveInfo(converged=bool(resnorm / bnorm < tol), iters=step,
+                         resnorm=resnorm_f, bnorm=bnorm_f,
+                         breakdown=bool(breakdown))
+    return x, info
 
 
+@_solve_span
 def gcr(amat: Callable, prec: Callable, b: torch.Tensor, x0: torch.Tensor,
         tol: float = 1e-6, maxiter: int = 500, nrestart: int = 30):
     """Restarted GCR (≈ flexible GMRES), right-preconditioned (reference:
@@ -166,41 +197,48 @@ def gcr(amat: Callable, prec: Callable, b: torch.Tensor, x0: torch.Tensor,
     breakdown = torch.zeros((), dtype=torch.bool, device=b.device)
     k, step, done = 0, 0, False
     while step < maxiter and not done:
-        pk, qk = P[k], Q[k]
-        qq = dot(qk, qk)
-        # breakdown: A·p_k ≈ 0 (the operator annihilated the direction)
-        brk = qq <= 100 * tiny
-        alpha = dot(res, qk) / guard_zero(qq)
-        x = where(brk, x, x + alpha * pk)
-        res = where(brk, res, res - alpha * qk)
-        resnorm = torch.where(brk, resnorm, norm2(res))
-        step += 1
-        conv = resnorm / bnorm < tol
-        breakdown = breakdown | brk
-        done = bool(conv | brk)                  # one host sync per step
-        if done or step >= maxiter:
-            break
-        if k == nrestart - 1:
-            res = restart(x)
-            k = 0
-            continue
-        z = prec(res)
-        qn = amat(z)
-        # β_l = −(q_new·q_l)/(q_l·q_l) for l ≤ k, from the unmodified q_new
-        pn, dq = z, zeros_like(z)
-        for l in range(k + 1):
-            ql = Q[l]
-            beta = -dot(ql, qn) / guard_zero(dot(ql, ql))
-            pn = pn + beta * P[l]
-            dq = dq + beta * ql
-        P[k + 1] = pn
-        Q[k + 1] = qn + dq
-        k += 1
-    return x, SolveInfo(converged=bool(resnorm / bnorm <= tol), iters=step,
-                        resnorm=float(resnorm), bnorm=float(bnorm),
-                        breakdown=bool(breakdown))
+        with annotate("krylov.iter"):
+            pk, qk = P[k], Q[k]
+            qq = dot(qk, qk)
+            # breakdown: A·p_k ≈ 0 (the operator annihilated the
+            # direction)
+            brk = qq <= 100 * tiny
+            alpha = dot(res, qk) / guard_zero(qq)
+            x = where(brk, x, x + alpha * pk)
+            res = where(brk, res, res - alpha * qk)
+            resnorm = torch.where(brk, resnorm, norm2(res))
+            step += 1
+            conv = resnorm / bnorm < tol
+            breakdown = breakdown | brk
+            with annotate("sync.flag"):
+                done = bool(conv | brk)          # one host sync per step
+            if done or step >= maxiter:
+                break
+            if k == nrestart - 1:
+                res = restart(x)
+                k = 0
+                continue
+            z = prec(res)
+            qn = amat(z)
+            # β_l = −(q_new·q_l)/(q_l·q_l) for l ≤ k, from the unmodified
+            # q_new
+            pn, dq = z, zeros_like(z)
+            for l in range(k + 1):
+                ql = Q[l]
+                beta = -dot(ql, qn) / guard_zero(dot(ql, ql))
+                pn = pn + beta * P[l]
+                dq = dq + beta * ql
+            P[k + 1] = pn
+            Q[k + 1] = qn + dq
+            k += 1
+    with annotate("sync.result"):
+        info = SolveInfo(converged=bool(resnorm / bnorm <= tol), iters=step,
+                         resnorm=float(resnorm), bnorm=float(bnorm),
+                         breakdown=bool(breakdown))
+    return x, info
 
 
+@_solve_span
 def gmres(amat: Callable, prec: Callable, b: torch.Tensor, x0: torch.Tensor,
           tol: float = 1e-6, maxiter: int = 500, nrestart: int = 30):
     """Restarted GMRES(m), right-preconditioned, with Givens rotations (the
@@ -227,45 +265,49 @@ def gmres(amat: Callable, prec: Callable, b: torch.Tensor, x0: torch.Tensor,
         g = [beta] + [zero] * m
         k, done, brk = 0, False, False
         for j in range(m):
-            w = amat(prec(V[j]))
-            # modified Gram-Schmidt over the j+1 built rows, w updated
-            # between projections
-            hcol = [zero] * (m + 1)
-            for i in range(j + 1):
-                vi = V[i]
-                hi = dot(vi, w)
-                w = w - hi * vi
-                hcol[i] = hi
-            hnext = norm2(w)
-            V[j + 1] = w / torch.maximum(hnext, eps)
-            hcol[j + 1] = hnext
-            # the previous Givens rotations on the new column
-            for i in range(j):
-                hi = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
-                hip = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
-                hcol[i], hcol[i + 1] = hi, hip
-            # the new rotation annihilating hcol[j+1]
-            denom = torch.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
-            c = hcol[j] / torch.maximum(denom, eps)
-            sgn = hcol[j + 1] / torch.maximum(denom, eps)
-            hj = c * hcol[j] + sgn * hcol[j + 1]
-            hcol[j], hcol[j + 1] = hj, zero
-            g[j + 1] = -sgn * g[j]
-            g[j] = c * g[j]
-            H[:, j] = torch.stack(hcol)
-            cs.append(c)
-            sn.append(sgn)
-            # Arnoldi breakdown: the new column annihilated entirely (hnext
-            # ≈ 0 and the rotated pivot ≈ 0, a structurally singular
-            # operator); a happy breakdown (hnext ≈ 0, hj ≠ 0) converges
-            brk_t = (hnext <= 100 * tiny) & (torch.abs(hj) <= 100 * tiny)
-            done_t = (torch.abs(g[j + 1]) / bnorm < tol) | brk_t
-            k += 1
-            # one host sync per Arnoldi step: done, then brk
-            done = bool(done_t)
-            if done:
-                brk = bool(brk_t)
-                break
+            with annotate("krylov.iter"):
+                w = amat(prec(V[j]))
+                # modified Gram-Schmidt over the j+1 built rows, w updated
+                # between projections
+                hcol = [zero] * (m + 1)
+                for i in range(j + 1):
+                    vi = V[i]
+                    hi = dot(vi, w)
+                    w = w - hi * vi
+                    hcol[i] = hi
+                hnext = norm2(w)
+                V[j + 1] = w / torch.maximum(hnext, eps)
+                hcol[j + 1] = hnext
+                # the previous Givens rotations on the new column
+                for i in range(j):
+                    hi = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                    hip = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+                    hcol[i], hcol[i + 1] = hi, hip
+                # the new rotation annihilating hcol[j+1]
+                denom = torch.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+                c = hcol[j] / torch.maximum(denom, eps)
+                sgn = hcol[j + 1] / torch.maximum(denom, eps)
+                hj = c * hcol[j] + sgn * hcol[j + 1]
+                hcol[j], hcol[j + 1] = hj, zero
+                g[j + 1] = -sgn * g[j]
+                g[j] = c * g[j]
+                H[:, j] = torch.stack(hcol)
+                cs.append(c)
+                sn.append(sgn)
+                # Arnoldi breakdown: the new column annihilated entirely
+                # (hnext ≈ 0 and the rotated pivot ≈ 0, a structurally
+                # singular operator); a happy breakdown (hnext ≈ 0, hj ≠ 0)
+                # converges
+                brk_t = (hnext <= 100 * tiny) \
+                    & (torch.abs(hj) <= 100 * tiny)
+                done_t = (torch.abs(g[j + 1]) / bnorm < tol) | brk_t
+                k += 1
+                # one host sync per Arnoldi step: done, then brk
+                with annotate("sync.flag"):
+                    done = bool(done_t)
+                    brk = done and bool(brk_t)
+                if done:
+                    break
         # back-substitution on the k×k upper-triangular H
         y = torch.zeros((m,), dtype=dt, device=dev)
         for i in range(k - 1, -1, -1):
@@ -288,11 +330,14 @@ def gmres(amat: Callable, prec: Callable, b: torch.Tensor, x0: torch.Tensor,
         step += k
         breakdown = breakdown or brk
     resnorm = norm2(b - amat(x))
-    return x, SolveInfo(converged=bool(resnorm / bnorm < tol * 1.01),
-                        iters=step, resnorm=float(resnorm),
-                        bnorm=float(bnorm), breakdown=breakdown)
+    with annotate("sync.result"):
+        info = SolveInfo(converged=bool(resnorm / bnorm < tol * 1.01),
+                         iters=step, resnorm=float(resnorm),
+                         bnorm=float(bnorm), breakdown=breakdown)
+    return x, info
 
 
+@_solve_span
 def cg(amat: Callable, prec: Callable, b: torch.Tensor, x0: torch.Tensor,
        tol: float = 1e-6, maxiter: int = 500):
     """Preconditioned conjugate gradients (SPD systems), with the
@@ -307,24 +352,30 @@ def cg(amat: Callable, prec: Callable, b: torch.Tensor, x0: torch.Tensor,
     breakdown = torch.zeros((), dtype=torch.bool, device=b.device)
     step, done = 0, False
     while step < maxiter and not done:
-        ap = amat(p)
-        pap = dot(p, ap)
-        # breakdown: p·Ap structurally 0 (an indefinite operator) or r·z
-        # annihilated; eps²-scale so f32 rounding at large n does not fire
-        brk = torch.abs(pap) <= eps * eps * norm2(p) * norm2(ap) + 100 * tiny
-        brk = brk | (torch.abs(rz) <= 100 * tiny)
-        alpha = rz / guard_zero(pap)
-        x = where(brk, x, x + alpha * p)
-        r = where(brk, r, r - alpha * ap)
-        resnorm = torch.where(brk, resnorm, norm2(r))
-        conv = resnorm / bnorm < tol
-        z = prec(r)
-        rz_new = dot(r, z)
-        p = z + (rz_new / guard_zero(rz)) * p
-        rz = rz_new
-        breakdown = breakdown | brk
-        step += 1
-        done = bool(conv | brk)                  # one host sync per step
-    return x, SolveInfo(converged=bool(resnorm / bnorm < tol), iters=step,
-                        resnorm=float(resnorm), bnorm=float(bnorm),
-                        breakdown=bool(breakdown))
+        with annotate("krylov.iter"):
+            ap = amat(p)
+            pap = dot(p, ap)
+            # breakdown: p·Ap structurally 0 (an indefinite operator) or
+            # r·z annihilated; eps²-scale so f32 rounding at large n does
+            # not fire
+            brk = torch.abs(pap) \
+                <= eps * eps * norm2(p) * norm2(ap) + 100 * tiny
+            brk = brk | (torch.abs(rz) <= 100 * tiny)
+            alpha = rz / guard_zero(pap)
+            x = where(brk, x, x + alpha * p)
+            r = where(brk, r, r - alpha * ap)
+            resnorm = torch.where(brk, resnorm, norm2(r))
+            conv = resnorm / bnorm < tol
+            z = prec(r)
+            rz_new = dot(r, z)
+            p = z + (rz_new / guard_zero(rz)) * p
+            rz = rz_new
+            breakdown = breakdown | brk
+            step += 1
+            with annotate("sync.flag"):
+                done = bool(conv | brk)          # one host sync per step
+    with annotate("sync.result"):
+        info = SolveInfo(converged=bool(resnorm / bnorm < tol), iters=step,
+                         resnorm=float(resnorm), bnorm=float(bnorm),
+                         breakdown=bool(breakdown))
+    return x, info

@@ -19,11 +19,13 @@ diagonals are the contiguous slices ``data[:d0]`` and ``data[d0 + 1:]``.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from .csr import CSRMatrix, as_device
 
 __all__ = ["DiaMatrix", "dia_from_csr", "try_dia_from_csr", "dia_from_numpy",
@@ -174,11 +176,18 @@ def dia_from_csr(A: CSRMatrix, device="cuda") -> DiaMatrix:
 def try_dia_from_csr(A: CSRMatrix, device="cuda",
                      max_diags: int = 64) -> DiaMatrix | None:
     """DIA form of ``A`` if it has at most ``max_diags`` distinct column
-    offsets, else ``None``."""
-    rows, offs, uniq = _entry_offsets(A)
-    if uniq.shape[0] > max_diags:
-        return None
-    return _dia_from_entries(A, rows, offs, uniq, device)
+    offsets, else ``None``.  Counts its calls and host seconds in
+    ``utils.profiling.counters`` (``setup.dia_from_csr``,
+    ``setup.dia_from_csr_s``)."""
+    t0 = time.perf_counter()
+    try:
+        rows, offs, uniq = _entry_offsets(A)
+        if uniq.shape[0] > max_diags:
+            return None
+        return _dia_from_entries(A, rows, offs, uniq, device)
+    finally:
+        count("setup.dia_from_csr")
+        count("setup.dia_from_csr_s", time.perf_counter() - t0)
 
 
 def dia_pad_identity(A: DiaMatrix, n_pad: int) -> DiaMatrix:

@@ -7,7 +7,8 @@ Port of ``PrecTimers`` and ``total_times`` from
 returns before a CUDA device has finished, so a span on a CUDA device
 synchronises it before reading the clock at both ends: the time covers the
 device work done inside the span.  A distributed solve's span names every
-shard device and synchronises each.
+shard device and synchronises each.  Each synchronisation is a
+``sync.timers`` span of ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import time
 from dataclasses import dataclass
 
 import torch
+
+from .profiling import annotate
 
 __all__ = ["PrecTimers", "best_ms", "synchronize", "total_times"]
 
@@ -75,8 +78,9 @@ class _Span:
         self.devices = tuple(dict.fromkeys(torch.device(d) for d in devices))
 
     def _sync(self):
-        for dev in self.devices:
-            synchronize(dev)
+        with annotate("sync.timers"):
+            for dev in self.devices:
+                synchronize(dev)
 
     def __enter__(self):
         self._sync()
