@@ -1,14 +1,15 @@
-// DIA-stencil kernels K1-K4 and K8 for Hopper (sm_90a), templated on
-// float/double.
+// DIA-stencil kernels K1-K4, K8 and K12 (the zero-start ILU(0) apply
+// sweep) for Hopper (sm_90a), templated on float/double.
 //
 // Hand-written counterparts of the Pallas kernels in
-// blasted_tpu/ops/stencil.py (K1-K4), and of the plain Chow-Patel factor
-// sweep that the JAX package leaves to XLA (K8).  Each kernel has a plain
-// PyTorch twin in blasted_tpu_torch/ops/stencil.py with the same contract;
-// the wrappers
-// there check every operand and call the C entry points below through
-// ctypes.  Build (done at first CUDA use by blasted_tpu_torch/ops/_cuda.py,
-// which compiles every csrc/*.cu this way and links them into one library):
+// blasted_tpu/ops/stencil.py (K1-K4), of the plain Chow-Patel factor
+// sweep that the JAX package leaves to XLA (K8), and a fold of an apply
+// chain's first two K2 sweeps from zero into one (K12).  Each kernel has a
+// plain PyTorch twin in blasted_tpu_torch/ops/stencil.py with the same
+// contract; the wrappers there check every operand and call the C entry
+// points below through ctypes.  Build (done at first CUDA use by
+// blasted_tpu_torch/ops/_cuda.py, which compiles every csrc/*.cu this way
+// and links them into one library):
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -Xcompiler -fPIC -c -o dia_stencil.o dia_stencil.cu
@@ -83,6 +84,38 @@ __global__ void tri_sweep_kernel(Offsets offs, const T* __restrict__ coeff,
     for (int j = 0; j < offs.k; ++j)
       acc = acc - coeff[j * n + i] * shifted(y, i + offs.o[j], n);
     if (dinv != nullptr) acc = acc * dinv[i];
+    out[i] = acc;
+  }
+}
+
+// K12, the zero-start sweep — the first two K2 launches of an ILU(0) apply
+// chain that starts from zero, in one launch.  From y0 = 0, K2's first
+// sweep yields the right-hand side (unit lower) or rhs * dinv (upper), so
+// its second sweep is
+//   lower: out[i] = rhs[i] - sum_j c[j][i] * rhs[i + o_j]
+//   upper: out[i] = (rhs[i] - sum_j c[j][i] * (rhs[i + o_j] * dinv[i + o_j]))
+//                   * dinv[i]
+// with K2's order of operations: each neighbour's rhs * dinv is the one
+// product the first sweep rounded, so on finite factors the output equals
+// the two K2 launches bit for bit (the sign of a zero may differ).  Reads
+// beyond the ends give 0, as shifted() does.  out must not alias rhs.
+// Traffic: (m + 2)·n elements per call (+ n with dinv), against
+// (m + 3)·n + (m + 3)·n (+ 2n) and a fill of n for the chain it replaces.
+template <typename T, bool kUpper>
+__global__ void zero_start_sweep_kernel(Offsets offs,
+                                        const T* __restrict__ coeff,
+                                        const T* __restrict__ rhs,
+                                        const T* __restrict__ dinv,
+                                        T* __restrict__ out, long long n) {
+  for (long long i = first_row(); i < n; i += row_stride()) {
+    T acc = rhs[i];
+    for (int j = 0; j < offs.k; ++j) {
+      const long long c = i + offs.o[j];
+      T v = T(0);
+      if (c >= 0 && c < n) v = kUpper ? rhs[c] * dinv[c] : rhs[c];
+      acc = acc - coeff[j * n + i] * v;
+    }
+    if (kUpper) acc = acc * dinv[i];
     out[i] = acc;
   }
 }
@@ -224,6 +257,34 @@ int bt_tri_sweep(const long long* offs, int k, int dtype, const void* coeff,
     tri_sweep_kernel<double><<<grid_for(n), kThreads, 0, s>>>(
         o, (const double*)coeff, (const double*)rhs, (const double*)dinv,
         (const double*)y, (double*)out, n);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+int bt_zero_start_sweep(const long long* offs, int k, int dtype, int upper,
+                        const void* coeff, const void* rhs, const void* dinv,
+                        void* out, long long n, void* stream) {
+  Offsets o;
+  if (!make_offsets(offs, k, &o) || (upper && dinv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && upper)
+    zero_start_sweep_kernel<float, true><<<grid_for(n), kThreads, 0, s>>>(
+        o, (const float*)coeff, (const float*)rhs, (const float*)dinv,
+        (float*)out, n);
+  else if (dtype == 0)
+    zero_start_sweep_kernel<float, false><<<grid_for(n), kThreads, 0, s>>>(
+        o, (const float*)coeff, (const float*)rhs, nullptr, (float*)out, n);
+  else if (dtype == 1 && upper)
+    zero_start_sweep_kernel<double, true><<<grid_for(n), kThreads, 0, s>>>(
+        o, (const double*)coeff, (const double*)rhs, (const double*)dinv,
+        (double*)out, n);
+  else if (dtype == 1)
+    zero_start_sweep_kernel<double, false><<<grid_for(n), kThreads, 0, s>>>(
+        o, (const double*)coeff, (const double*)rhs, nullptr, (double*)out,
+        n);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -57,6 +57,8 @@ _IDX = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "bt_dia_spmv": (_OFFS, _I32, _I32, _P, _P, _P, _I64, _P),
     "bt_tri_sweep": (_OFFS, _I32, _I32, _P, _P, _P, _P, _P, _I64, _P),
+    "bt_zero_start_sweep": (_OFFS, _I32, _I32, _I32, _P, _P, _P, _P, _I64,
+                            _P),
     "bt_factor_u0": (_OFFS, _I32, _I32, _P, _P, _P, _P, _P, _I64, _P),
     "bt_factor_lower": (_OFFS, _I32, _I32, _P, _P, _P, _I64, _P),
     "bt_bdia_spmv": (_OFFS, _I32, _I32, _I32, _P, _P, _P, _I64, _P),
@@ -75,10 +77,12 @@ _SIGNATURES = {
 
 #: The source under ``csrc/`` of each kernel, by the name its launches are
 #: counted under (K6 by mode: the Dinv-emitting sweeps and the U0-emitting
-#: final sweep; K7 and K10 by mode: the unit-lower and the upper apply
-#: sweep; K9-K11 are the padded path's).
+#: final sweep; K7, K10 and the zero-start sweep by mode: the unit-lower
+#: and the upper apply sweep; K9-K11 are the padded path's).
 KERNEL_SOURCES = {
     "dia_spmv": "dia_stencil.cu", "tri_sweep": "dia_stencil.cu",
+    "zero_start_lower_sweep": "dia_stencil.cu",
+    "zero_start_upper_sweep": "dia_stencil.cu",
     "factor_u0": "dia_stencil.cu", "factor_lower": "dia_stencil.cu",
     "bspmv": "bdia_stencil.cu", "bfactor_dinv": "bdia_stencil.cu",
     "bfactor_u0": "bdia_stencil.cu", "block_inverse": "bdia_stencil.cu",

@@ -1,10 +1,12 @@
-"""DIA-stencil kernels K1–K4 and K8: wrappers, plain twins, and the route
-rule.
+"""DIA-stencil kernels K1–K4, K8 and K12: wrappers, plain twins, and the
+route rule.
 
 Counterparts of the Pallas kernels of ``blasted_tpu/ops/stencil.py`` (K1–K4)
 and of the plain Chow–Patel factor sweep that the JAX package leaves to XLA
 (K8: ``dia_factor_sweep_tuple`` and ``dia_factor_sweep`` of
-``blasted_tpu/precond/dia_ilu0.py``, no ``pallas_call``).  Each kernel is
+``blasted_tpu/precond/dia_ilu0.py``, no ``pallas_call``), and K12, the
+zero-start sweep: K2's first two sweeps of an ILU(0) apply chain from zero
+in one launch (in JAX two ``_tri_sweep_call`` launches).  Each kernel is
 CUDA C++ in ``csrc/dia_stencil.cu``; beside it here stands its plain
 PyTorch twin with the same contract (same operations in the same order, the
 same exact ``0 → 1`` denominator guard, zero reads beyond the ends of the
@@ -20,6 +22,9 @@ K4    factor_lower_stencil        factor_lower_ref        ``_factor_lower_``
                                                           ``call``
 K8    plain_factor_sweep_stencil  plain_factor_sweep_ref  the plain sweep
                                                           (XLA)
+K12   zero_start_sweep_stencil    zero_start_sweep_ref    two
+                                                          ``_tri_sweep_call``
+                                                          from zero
 ====  ==========================  ======================  ===================
 
 A wrapper checks its operands and then dispatches on their device: a CPU
@@ -47,6 +52,7 @@ from .blas1 import guard_zero
 __all__ = [
     "dia_spmv_stencil", "dia_spmv_ref",
     "tri_sweep_stencil", "tri_sweep_ref",
+    "zero_start_sweep_stencil", "zero_start_sweep_ref",
     "factor_u0_stencil", "factor_u0_ref",
     "factor_lower_stencil", "factor_lower_ref",
     "PlainSweepPlan", "plain_factor_sweep_stencil", "plain_factor_sweep_ref",
@@ -159,6 +165,40 @@ def tri_sweep_stencil(offsets, coeff: torch.Tensor, rhs: torch.Tensor,
         out = torch.empty_like(y)
         _launch("tri_sweep", "bt_tri_sweep", offsets, out, n,
                 (_ptr(coeff), _ptr(rhs), _ptr(dinv), _ptr(y), _ptr(out)))
+    return out
+
+
+# ------------------------------------------------- K12: zero-start sweep ----
+
+def zero_start_sweep_ref(offsets, coeff: torch.Tensor, rhs: torch.Tensor,
+                         dinv: torch.Tensor | None = None):
+    """Twin of K12: K2's twin with the iterate its first sweep from zero
+    yields, ``rhs`` (unit lower) or ``rhs · dinv`` (upper)."""
+    y = rhs if dinv is None else rhs * dinv
+    return tri_sweep_ref(offsets, coeff, rhs, y, dinv)
+
+
+def zero_start_sweep_stencil(offsets, coeff: torch.Tensor, rhs: torch.Tensor,
+                             dinv: torch.Tensor | None = None):
+    """K12, the zero-start sweep: the second of two K2 sweeps from a zero
+    iterate, in one launch, ``(rhs − Σ_j coeff[j]·y1[·+o_j]) · (dinv | 1)``
+    with ``y1`` K2's first sweep from zero (``rhs``, or ``rhs · dinv`` with
+    ``dinv``).  On finite factors it equals those two K2 sweeps bit for
+    bit, up to the sign of a zero.  Counted as ``zero_start_lower_sweep``
+    or, with ``dinv``, ``zero_start_upper_sweep``."""
+    vectors = {"rhs": rhs}
+    if dinv is not None:
+        vectors["dinv"] = dinv
+    n = _check("zero_start_sweep", offsets, vectors, {"coeff": coeff})
+    if rhs.device.type == "cpu":
+        return zero_start_sweep_ref(offsets, coeff, rhs, dinv)
+    name = "zero_start_lower_sweep" if dinv is None \
+        else "zero_start_upper_sweep"
+    with torch.cuda.device(rhs.device):
+        out = torch.empty_like(rhs)
+        _launch(name, "bt_zero_start_sweep", offsets, out, n,
+                (int(dinv is not None), _ptr(coeff), _ptr(rhs), _ptr(dinv),
+                 _ptr(out)))
     return out
 
 

@@ -20,7 +20,14 @@ or the plain per-sweep chain (kernel K8, one launch per sweep, over a pair
 table built once per preconditioner).  The apply sweeps are kernel K2
 when the stored factor has the vector's dtype; with ``apply_dtype`` (the
 factors stored in bfloat16, say) they are the plain shifted products, as in
-JAX (``ops/sweeps.py``).
+JAX (``ops/sweeps.py``).  An apply from zero (``ApplyInit.ZERO``) with at
+least two sweeps and the factor in the vector's dtype starts each chain
+with kernel K12, the zero-start sweep, which computes K2's first two
+sweeps from zero in one launch: the first of them yields the right-hand
+side (lower) or the right-hand side times the inverse diagonal (upper),
+so the chain runs one K12 and ``napplysweeps − 2`` K2 launches a
+triangle, no fill, and equals the K2 chain from zero bit for bit on
+finite factors (the sign of a zero aside).
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ from ..ops.stencil import (
     factor_takes_compressed_route,
     plain_factor_sweep_ref,
     plain_factor_sweep_stencil,
+    zero_start_sweep_stencil,
 )
 from ..ops.sweeps import run_sweeps, unit_lower_sweep, upper_solve_sweep
 from ..sparse.dia import DiaMatrix, shift_read
+from ..utils import profiling
 from .base import Preconditioner, PrecInfo
 from .diagnostics import diagonal_dominance, prec_info
 from .levels import (
@@ -235,10 +244,25 @@ class DiaILU0Preconditioner(Preconditioner):
         st = state
         A = mat
         z = st.scale * r if st.scale is not None else r
+        profiling.count("precond.ilu_apply")
         if self.napplysweeps == SEQUENTIAL:
             low, nlow, up, nup, _ = self._build_levels()
             y = exact_lower_solve(A, st.ilu, z, low, nlow)
             zout = exact_upper_solve(A, st.ilu, st.ilu_dinv, y, up, nup)
+        elif (self.apply_init == ApplyInit.ZERO and self.napplysweeps >= 2
+              and st.ilu.dtype == z.dtype):
+            # K12 heads each chain; the dtypes are K2's route (ops/sweeps.py)
+            profiling.count("precond.zero_start")
+            d0, rest = A.d0, self.napplysweeps - 2
+            y = run_sweeps(rest,
+                           lambda yy: unit_lower_sweep(A, st.ilu, z, yy),
+                           zero_start_sweep_stencil(A.offsets[:d0],
+                                                    st.ilu[:d0], z))
+            zout = run_sweeps(
+                rest,
+                lambda zz: upper_solve_sweep(A, st.ilu, st.ilu_dinv, y, zz),
+                zero_start_sweep_stencil(A.offsets[d0 + 1:],
+                                         st.ilu[d0 + 1:], y, st.ilu_dinv))
         else:
             y = run_sweeps(self.napplysweeps,
                            lambda yy: unit_lower_sweep(A, st.ilu, z, yy),

@@ -36,13 +36,16 @@ The program's spans, each named after its layer:
 - ``sync.timers``: the synchronisations of ``utils/timing.py``'s spans.
 
 :data:`counters` holds numbers that are always on, written by
-:func:`count` at boundaries that run once per call into the API, never
-inside a Krylov iteration: ``setup.dia_from_csr`` / ``setup.dia_from_csr_s``
-(calls of ``sparse/dia.py::try_dia_from_csr`` and their host seconds) and
-``setup.precond`` / ``setup.precond_s`` (calls of
+:func:`count` (a dictionary add, ~0.2 µs on the CPU): at boundaries that
+run once per call into the API, ``setup.dia_from_csr`` /
+``setup.dia_from_csr_s`` (calls of ``sparse/dia.py::try_dia_from_csr`` and
+their host seconds) and ``setup.precond`` / ``setup.precond_s`` (calls of
 ``api.setup_local_preconditioner``; their host seconds and those of each
 context's first ``api.compute_preconditioner``, the factor that set-up
-ends with).
+ends with); once per apply of a DIA ILU(0) preconditioner
+(``precond/dia_ilu0.py``), ``precond.ilu_apply`` (every apply) and
+``precond.zero_start`` (the applies whose chains start with the
+zero-start sweep K12).
 Kernel launches are counted, and their host time summed, in
 ``ops/_cuda.py`` (``launches``, ``launch_ns``), not here.
 

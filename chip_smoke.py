@@ -5,15 +5,17 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``blasted_tpu_torch/csrc`` (K1-K4 and the
-plain factor sweep K8 of the scalar banded path; K5, K6, the block inverse
+It builds the CUDA kernels from ``blasted_tpu_torch/csrc`` (K1-K4, the
+plain factor sweep K8 and the zero-start apply sweep K12 of the scalar
+banded path; K5, K6, the block inverse
 and the apply sweep K7 of the point-block path; K9-K11 of the general
 padded path: the padded SpMV, the ILU(0) apply sweep in two modes and the
 factor sweep over the ILU pair lists) and checks each against its plain
-PyTorch twin on the card: K1-K4 and K8 at the shapes of the scalar
+PyTorch twin on the card: K1-K4, K8 and K12 at the shapes of the scalar
 main path (the npts=162 band in float32; K8 in its tuple form, which
-[main] runs, and its stacked form, which the distributed factor runs) and
-at npts=48 in float64; K5, both modes of K6, the block inverse and both
+[main] runs, and its stacked form, which the distributed factor runs; K12
+in both modes, bitwise, and bitwise equal to the two K2 sweeps from zero
+it replaces, up to the sign of a zero) and at npts=48 in float64; K5, both modes of K6, the block inverse and both
 modes of K7 at bs=4 on the g=128 block band in float32 (the block main
 path's shapes), at bs=5, g=96 in float32 and at bs=4, g=24 in float64;
 K9-K11, each bitwise, on the padded forms of the two main systems in
@@ -201,7 +203,13 @@ from blasted_tpu_torch.config import (
 from blasted_tpu_torch.factory import create_preconditioner, to_device_matrix
 from blasted_tpu_torch.ops import _cuda, bstencil, padded, stencil
 from blasted_tpu_torch.ops.spmv import bspmv, spmv
-from blasted_tpu_torch.ops.sweeps import invert_diag_blocks, triangle
+from blasted_tpu_torch.ops.sweeps import (
+    invert_diag_blocks,
+    run_sweeps,
+    triangle,
+    unit_lower_sweep,
+    upper_solve_sweep,
+)
 from blasted_tpu_torch.parallel import make_mesh, shard_vector
 from blasted_tpu_torch.parallel.dist_dia import DistBlockDiaSolver
 from blasted_tpu_torch.parallel.dryrun import dryrun_cases, dryrun_multichip
@@ -233,10 +241,13 @@ from blasted_tpu_torch.sparse.bdia import shift_last
 from blasted_tpu_torch.sparse.dia import shift_read
 
 # the TPU kernel each one replaces: file:line of its pallas_call (the block
-# inverse, K7 and K8: the JAX functions XLA runs, with no pallas_call)
+# inverse, K7 and K8: the JAX functions XLA runs, with no pallas_call; K12:
+# K2's first two calls of an apply chain from zero)
 REPLACES = {
     "dia_spmv": "blasted_tpu/ops/stencil.py:221",
     "tri_sweep": "blasted_tpu/ops/stencil.py:295",
+    "zero_start_lower_sweep": "blasted_tpu/ops/stencil.py:295",
+    "zero_start_upper_sweep": "blasted_tpu/ops/stencil.py:295",
     "factor_u0": "blasted_tpu/ops/stencil.py:383",
     "factor_lower": "blasted_tpu/ops/stencil.py:436",
     "bspmv": "blasted_tpu/ops/bstencil.py:242",
@@ -259,6 +270,8 @@ NO_LIBRARY = {
     "bfactor_u0": "no PyTorch call computes a block Chow-Patel sweep",
     "bdia_upper_sweep": "dinv·(y − U z) is two products: torch.addmv "
                         "computes only y − U z",
+    "zero_start_upper_sweep": "dinv·(y − U (y·dinv)) is three products: "
+                              "torch.addmv computes only y − U z",
     "plain_factor_sweep": "no PyTorch call computes a Chow-Patel sweep "
                           "(shifted products, a guarded division, a "
                           "re-mask)",
@@ -302,9 +315,12 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 KRYLOV_RTOL = 1e-5
 KRYLOV_RELRES = 1.1 * KRYLOV_RTOL
 X_REF_SEED = 17
-# ILU(0) 4,4 on the 160³ band: K1 and K2; its factor is plain (R4): K8
-# once per sweep
-ILU_KERNELS = {"dia_spmv": None, "tri_sweep": None, "plain_factor_sweep": 4}
+# K12's two modes: the head of each ILU(0) apply chain from zero
+ZERO_START = ("zero_start_lower_sweep", "zero_start_upper_sweep")
+# ILU(0) 4,4 on the 160³ band: K1, K2 and K12 (each apply from zero); its
+# factor is plain (R4): K8 once per sweep
+ILU_KERNELS = {"dia_spmv": None, "tri_sweep": None,
+               **dict.fromkeys(ZERO_START), "plain_factor_sweep": 4}
 # [krylov-main]: (label, options, kernels the solve must launch)
 KRYLOV_CASES = [
     ("gmres+ilu0", {"ksp_type": "gmres", "restart": 30,
@@ -507,7 +523,8 @@ def bsr_of_band(offsets, data, mask, lower_only=False):
 
 def kernel_cases(op):
     """(name, kernel call, twin call) for each scalar kernel; K2 is checked
-    as the unit-lower and the upper sweep, and timed on the upper sweep."""
+    as the unit-lower and the upper sweep, and timed on the upper sweep;
+    K12 in each mode."""
     offs, data = op["offsets"], op["data"]
     lo, up = offs[:3], offs[4:]
     return {
@@ -521,6 +538,15 @@ def kernel_cases(op):
              lambda: stencil.tri_sweep_ref(up, data[4:], op["rhs"], op["y"],
                                            op["dinv"])),
         ],
+        "zero_start_lower_sweep": [
+            (lambda: stencil.zero_start_sweep_stencil(lo, data[:3],
+                                                      op["rhs"]),
+             lambda: stencil.zero_start_sweep_ref(lo, data[:3], op["rhs"]))],
+        "zero_start_upper_sweep": [
+            (lambda: stencil.zero_start_sweep_stencil(up, data[4:],
+                                                      op["rhs"], op["dinv"]),
+             lambda: stencil.zero_start_sweep_ref(up, data[4:], op["rhs"],
+                                                  op["dinv"]))],
         "factor_u0": [(
             lambda: stencil.factor_u0_stencil(op["lower_offs"], data[3],
                                               op["base_l"], op["ubs"], op["u0"]),
@@ -662,9 +688,14 @@ def scalar_work(name: str, n: int, isz: int) -> tuple:
     uppers + u0 + out; K4 3 lowers + u0 + 3 outputs; K8's tuple form the
     base of the 3 lowers and the diagonal, the 7 rows of the iterate and
     the 7 rows of its fresh output (the 3 pair-free uppers copied through,
-    as the twin's stack writes them) — and its operations per row (K8: the
-    diagonal's 3 pair products and subtractions, the 3 lowers' divisions)."""
+    as the twin's stack writes them); K12's lower mode 3 diagonals + rhs +
+    out, its upper mode 3 diagonals + rhs + dinv + out — and its
+    operations per row (K8: the diagonal's 3 pair products and
+    subtractions, the 3 lowers' divisions; K12's upper mode also the 3
+    neighbours' rhs·dinv)."""
     streams, flops = {"dia_spmv": (9, 2 * 7), "tri_sweep": (7, 2 * 3 + 1),
+                      "zero_start_lower_sweep": (5, 2 * 3),
+                      "zero_start_upper_sweep": (6, 3 + 2 * 3 + 1),
                       "factor_u0": (9, 3 * 3), "factor_lower": (7, 3),
                       "plain_factor_sweep": (18, 2 * 3 + 3)}[name]
     return streams * n * isz, flops * n
@@ -693,7 +724,12 @@ def block_work(name: str, nb: int, bs: int, npair: int, isz: int) -> tuple:
 
 def scalar_library(name: str, op):
     """The one PyTorch call computing K1's function (``torch.mv`` on the
-    CUDA CSR band), else None; K2's is timed by ``lower_timed``."""
+    CUDA CSR band) or K12's lower mode's (``torch.addmv``, rhs − L·rhs),
+    else None; K2's is timed by ``lower_timed``."""
+    if name == "zero_start_lower_sweep":
+        low = csr_of_band(op["offsets"], op["data"], op["mask"],
+                          lower_only=True)
+        return lambda: torch.addmv(op["rhs"], low, op["rhs"], alpha=-1)
     if name != "dia_spmv":
         return None
     csr = csr_of_band(op["offsets"], op["data"], op["mask"])
@@ -731,6 +767,9 @@ def check_kernels(g: int, dtype, seed: int, timed_names=()) -> dict:
     for name, cases in kernel_cases(op).items():
         rec = compare(name, f"g={g} {dtype}", cases, dtype)
         rec["shape"] = f"g={g} n={n} {str(dtype)[6:]}"
+        if name in ZERO_START and rec["max_abs_err"] != 0.0:
+            fail(f"{name} g={g} {dtype}: not bitwise equal to its twin "
+                 f"({rec})")
         if name in timed_names:
             kernel, twin = cases[-1]
             timed(rec, name, kernel, twin, *scalar_work(name, n, isz), dtype,
@@ -740,7 +779,33 @@ def check_kernels(g: int, dtype, seed: int, timed_names=()) -> dict:
         out[name] = rec
         print(f"[kernel] {name} g={g} n={n} {str(dtype)[6:]}: "
               + " ".join(f"{k}={v}" for k, v in rec.items()), flush=True)
+    lo, up = op["offsets"][:3], op["offsets"][4:]
+    zero_start_is_k2_from_zero(f"g={g} {str(dtype)[6:]}", lo, op["data"][:3],
+                               up, op["data"][4:], op["dinv"], op["rhs"])
     return out
+
+
+def zero_start_is_k2_from_zero(label: str, lo, low, up, upp, dinv,
+                               rhs) -> None:
+    """K12 in each mode against its twin, bitwise, and against the two K2
+    launches from a zero iterate that it replaces, bitwise after ``+ 0.0``
+    (which clears the sign of a zero)."""
+    zero = torch.zeros_like(rhs)
+    for mode, offs, coeff, di in (("lower", lo, low, None),
+                                  ("upper", up, upp, dinv)):
+        got = stencil.zero_start_sweep_stencil(offs, coeff, rhs, di)
+        twin = stencil.zero_start_sweep_ref(offs, coeff, rhs, di)
+        two = stencil.tri_sweep_stencil(offs, coeff, rhs,
+                                        stencil.tri_sweep_stencil(
+                                            offs, coeff, rhs, zero, di), di)
+        torch.cuda.synchronize()
+        if not torch.equal(got, twin) or \
+                not torch.equal(got + 0.0, two + 0.0):
+            fail(f"{label}: K12 {mode} off its twin by "
+                 f"{float((got - twin).abs().max())} or off K2's two "
+                 f"sweeps from zero by {float((got - two).abs().max())}")
+    print(f"[kernel] K12 {label}: both modes bitwise equal to their twins "
+          "and to K2's two sweeps from zero", flush=True)
 
 
 def check_block_kernels(g: int, bs: int, dtype, seed: int,
@@ -1113,6 +1178,16 @@ def expect_padded(label: str, counts: dict, want: dict) -> None:
                  f"{want.get(name, 0)}")
 
 
+def apply_counts(opts: dict, iters: int) -> dict:
+    """K2's and K12's launches in a single-card BiCGSTAB solve of
+    ``iters`` iterations with DIA ILU(0) applied from zero (two applies an
+    iteration): each triangle one K12 and ``napply − 2`` K2 an apply."""
+    napply = int(opts["blasted_async_sweeps"].split(",")[1])
+    applies = 2 * iters
+    return {"tri_sweep": 2 * (napply - 2) * applies,
+            **dict.fromkeys(ZERO_START, applies)}
+
+
 def expect_launches(label: str, counts: dict, want: dict) -> None:
     """Each kernel of ``want`` launched as often as it says (an int, or
     None for "at least once"); every other kernel never."""
@@ -1224,15 +1299,61 @@ def main_system():
 
 def main_path(A, b, t_host: float):
     """The bench's scalar solve through the user entry point; returns the
-    kernel launches it made, its iterations and the host system."""
-    rec, _ = run_main("main", A, b, t_host, {"n": A.nrows, "nnz": A.nnz})
+    kernel launches it made, its iterations and the host system.  Then K12
+    on [main]'s own factor and right-hand side (``main_zero_start``)."""
+    rec, ctx = run_main("main", A, b, t_host, {"n": A.nrows, "nnz": A.nnz})
     # the plain factor route below JAX's gate (R4): K8 once per sweep, no
-    # K3/K4
+    # K3/K4; each apply from zero: K12 heads each triangle's chain
     nbuild = int(MAIN_OPTS["blasted_async_sweeps"].split(",")[0])
     expect_launches("main", rec["launches"],
-                    {"dia_spmv": 2 * rec["iters"] + 1, "tri_sweep": None,
+                    {"dia_spmv": 2 * rec["iters"] + 1,
+                     **apply_counts(MAIN_OPTS, rec["iters"]),
                      "plain_factor_sweep": nbuild})
+    main_zero_start(ctx.prec, b)
+    del ctx
     return rec["launches"], rec, A, b
+
+
+def main_zero_start(prec, b) -> None:
+    """K12 at [main]'s shape and state: each mode against its twin and
+    against K2's two sweeps from zero on [main]'s factor, its inverse
+    diagonal and b (the upper mode on the lower chain's output, as an
+    apply runs it), bitwise; and one apply against the chain of K2
+    sweeps from zero it replaces, bitwise after ``+ 0.0``; K12 timed there
+    beside K2."""
+    D, st = prec.mat, prec.state
+    d0 = D.d0
+    lo, up = D.offsets[:d0], D.offsets[d0 + 1:]
+    r = torch.from_numpy(b).to(D.device)
+    y = stencil.zero_start_sweep_stencil(lo, st.ilu[:d0], r)
+    zero_start_is_k2_from_zero("[main] state", lo, st.ilu[:d0], up,
+                               st.ilu[d0 + 1:], st.ilu_dinv, r)
+    zero_start_is_k2_from_zero("[main] state, upper on y", lo, st.ilu[:d0],
+                               up, st.ilu[d0 + 1:], st.ilu_dinv, y)
+    nsw = prec.napplysweeps
+
+    def k2_chain():
+        yy = run_sweeps(nsw, lambda v: unit_lower_sweep(D, st.ilu, r, v),
+                        torch.zeros_like(r))
+        return run_sweeps(nsw, lambda v: upper_solve_sweep(
+            D, st.ilu, st.ilu_dinv, yy, v), torch.zeros_like(r))
+
+    got, want = prec.apply_flat(r), k2_chain()
+    if not torch.equal(got + 0.0, want + 0.0):
+        fail(f"main: the apply differs from K2's chain from zero by "
+             f"{float((got - want).abs().max())}")
+    rec = {"apply_bitwise_k2_chain": True,
+           "apply_ms": cuda_ms(lambda: prec.apply_flat(r))[0],
+           "k2_chain_apply_ms": cuda_ms(k2_chain)[0],
+           "k12_lower_ms": cuda_ms(lambda: stencil.zero_start_sweep_stencil(
+               lo, st.ilu[:d0], r))[0],
+           "k12_upper_ms": cuda_ms(lambda: stencil.zero_start_sweep_stencil(
+               up, st.ilu[d0 + 1:], y, st.ilu_dinv))[0],
+           "k2_lower_ms": cuda_ms(lambda: stencil.tri_sweep_stencil(
+               lo, st.ilu[:d0], r, y))[0],
+           "k2_upper_ms": cuda_ms(lambda: stencil.tri_sweep_stencil(
+               up, st.ilu[d0 + 1:], y, r, st.ilu_dinv))[0]}
+    print("[main] [zero-start] " + json.dumps(rec), flush=True)
 
 
 def block_main_system():
@@ -1526,7 +1647,7 @@ def check_all_kernels(A, B) -> dict:
     # [main-compressed] launches, at its 288³ (checked at 160³ as well)
     shapes = check_kernels(MAIN_NPTS - 2, torch.float32, 1,
                            timed_names=("dia_spmv", "tri_sweep",
-                                        "plain_factor_sweep"))
+                                        "plain_factor_sweep", *ZERO_START))
     err = {k: v["max_abs_err"] for k, v in shapes.items()}
     big = check_kernels(COMPRESSED_G, torch.float32, 6,
                         timed_names=("factor_u0", "factor_lower"))
@@ -2326,7 +2447,7 @@ def main_compressed() -> dict:
                             {"factor_u0": 4, "factor_lower": 1})
             expect_launches("main-compressed solve", sol,
                             {"dia_spmv": 2 * info.iters + 1,
-                             "tri_sweep": None})
+                             **apply_counts(opts, info.iters)})
             for k in total:
                 total[k] = fac[k] + sol[k]
             relres = card_relres(D, b, x)
@@ -2452,7 +2573,7 @@ def newton_case(label: str, M, b, opts: dict, want_factor: dict) -> dict:
     expect_launches(f"{label} solve", sol,
                     {spmv_name: 2 * info2.iters + 1,
                      **({"bdia_lower_sweep": k7, "bdia_upper_sweep": k7}
-                        if block else {"tri_sweep": None})})
+                        if block else apply_counts(opts, info2.iters))})
     del ctx
     return {k: fac[k] + sol[k] for k in fac}
 

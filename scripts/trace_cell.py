@@ -23,7 +23,10 @@ set-up phases in host seconds, the mean wall ms a system untraced and
 traced (the cost of tracing on), the traced systems' ``SolveInfo.iters``
 beside the program's ``krylov.iter`` spans, the host µs per kernel launch
 over the process (``ops/_cuda.py``'s ``launch_ns`` over its
-``launches``), the device's busy and idle seconds, and the idle split.
+``launches``), the share of the traced systems' DIA ILU(0) applies whose
+chains start with the zero-start sweep K12 (the counters
+``precond.zero_start`` over ``precond.ilu_apply``), the device's busy and
+idle seconds, and the idle split.
 It imports nothing of JAX.
 """
 
@@ -179,6 +182,7 @@ def main(argv=None) -> int:
         with open(path) as f:
             events = [e for e in json.load(f)["traceEvents"] if "dur" in e]
     records = profiling.records()
+    applies = profiling.counters.get("precond.ilu_apply", 0)
     launches = sum(_cuda.launches.values())
     untraced_ms = sum(untraced) / len(untraced) * 1e3
     traced_ms = sum(traced) / len(traced) * 1e3
@@ -193,6 +197,9 @@ def main(argv=None) -> int:
                                     for r in records),
            "launch_host_us": (sum(_cuda.launch_ns.values()) / launches / 1e3
                               if launches else None),
+           "zero_start_share": (profiling.counters.get("precond.zero_start",
+                                                       0) / applies
+                                if applies else None),
            **idle_split(events, {r.name for r in records})}
     print(json.dumps(out), flush=True)
     return 0

@@ -4,9 +4,12 @@ leaves to XLA: each plain twin (what a CPU tensor runs) against the JAX
 function on the same numpy inputs made from a seed, in float64, to 1e-13
 of the largest magnitude (the twins run JAX's operations in JAX's order;
 the bound leaves room only for the last bits of a different summation
-tree, which no case here uses); the wrappers' contracts; the pair table
-built once per preconditioner; and the slice end to end (the scalar and
-block ILU(0) preconditioners against JAX's).
+tree, which no case here uses); K12 (the zero-start sweep: K2's first two
+sweeps of an ILU(0) apply chain from zero in one launch), whose twin is
+K2's from the first sweep's known iterate; the wrappers' contracts; the
+pair table built once per preconditioner; and the slice end to end (the
+scalar and block ILU(0) preconditioners against JAX's, the scalar apply
+through K12).
 
 The CUDA kernels themselves only run on the card; ``chip_smoke.py`` holds
 each against its twin there."""
@@ -185,6 +188,43 @@ def test_k8_stacked_twin_matches_jax(band):
     _close(got.numpy(), np.stack([np.asarray(v) for v in want]))
 
 
+# ----------------------------------------------------------------- K12 ----
+
+def _k12_args(offsets=BANDS["rcm"], mode="upper", dtype=torch.float64,
+              seed=7):
+    """K12's operands on a band: the strictly lower (or upper) diagonals
+    of a factor, a right-hand side and, upper, an inverse diagonal."""
+    _, _, ilu = _scalar_operands(offsets, seed)
+    rng = np.random.default_rng(seed + 1)
+    sel = [d for d, o in enumerate(offsets) if (o < 0) == (mode == "lower")
+           and o != 0]
+    rhs = rng.standard_normal(N)
+    dinv = 1.0 / (4.0 + rng.random(N)) if mode == "upper" else None
+    return (tuple(offsets[d] for d in sel),
+            torch.from_numpy(np.ascontiguousarray(ilu[sel])).to(dtype),
+            torch.from_numpy(rhs).to(dtype),
+            None if dinv is None else torch.from_numpy(dinv).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["lower", "upper"])
+@pytest.mark.parametrize("band", sorted(BANDS))
+def test_k12_twin_is_k2s_second_sweep_from_zero(band, mode, dtype):
+    """K12's twin is K2's twin from the iterate K2's first sweep from zero
+    yields (the right-hand side, or it times the inverse diagonal), bit
+    for bit, and equals K2's two sweeps from zero up to the sign of a
+    zero."""
+    offs, coeff, rhs, dinv = _k12_args(BANDS[band], mode, dtype)
+    got = stencil.zero_start_sweep_ref(offs, coeff, rhs, dinv)
+    y1 = rhs if dinv is None else rhs * dinv
+    assert torch.equal(got, stencil.tri_sweep_ref(offs, coeff, rhs, y1,
+                                                  dinv))
+    first = stencil.tri_sweep_ref(offs, coeff, rhs, torch.zeros_like(rhs),
+                                  dinv)
+    two = stencil.tri_sweep_ref(offs, coeff, rhs, first, dinv)
+    assert got.dtype == dtype and torch.equal(got + 0.0, two + 0.0)
+
+
 # ------------------------------------------------------------ contracts ----
 
 def _k7_args(bs=2, k=7, dtype=torch.float64):
@@ -215,6 +255,11 @@ def _wrapper_and_twin(kernel):
         return (stencil.plain_factor_sweep_stencil(plan, base, ilu),
                 stencil.plain_factor_sweep_ref(plan, base, ilu),
                 (base, ilu, plan.mask))
+    if kernel.startswith("k12"):
+        offs, coeff, rhs, dinv = _k12_args(mode=kernel[4:])
+        return (stencil.zero_start_sweep_stencil(offs, coeff, rhs, dinv),
+                stencil.zero_start_sweep_ref(offs, coeff, rhs, dinv),
+                tuple(t for t in (coeff, rhs, dinv) if t is not None))
     offsets, data, dinv, z, y, lower, upper = _k7_args()
     if kernel == "k7_lower":
         return (bstencil.bdia_lower_sweep_stencil(data, offsets, lower, z, y),
@@ -230,7 +275,7 @@ def _wrapper_and_twin(kernel):
             (data, dinv, y, z))
 
 
-KERNELS = ["k7_lower", "k7_upper", "k8"]
+KERNELS = ["k7_lower", "k7_upper", "k8", "k12_lower", "k12_upper"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -296,6 +341,29 @@ def _raises_k8(case):
     return stencil.plain_factor_sweep_stencil(other, base, ilu)
 
 
+def _raises_k12(case):
+    offs, coeff, rhs, dinv = _k12_args()
+    if case == "mixed_dtypes":
+        return stencil.zero_start_sweep_stencil(offs, coeff, rhs.float(),
+                                                dinv)
+    if case == "diagonals_over_128":
+        return stencil.zero_start_sweep_stencil(
+            tuple(range(1, 130)), torch.zeros(129, N, dtype=torch.float64),
+            rhs)
+    if case == "non_contiguous":
+        return stencil.zero_start_sweep_stencil(
+            offs, torch.zeros(N, len(offs), dtype=torch.float64).t(), rhs,
+            dinv)
+    if case == "wrong_shape":
+        return stencil.zero_start_sweep_stencil(offs, coeff, rhs, dinv[:-1])
+    assert case == "bfloat16"
+    return stencil.zero_start_sweep_stencil(offs, coeff.bfloat16(),
+                                            rhs.bfloat16())
+
+
+K12_RAISES = {"mixed_dtypes": TypeError, "diagonals_over_128": ValueError,
+              "non_contiguous": ValueError, "wrong_shape": ValueError,
+              "bfloat16": TypeError}
 K7_RAISES = {"mixed_dtypes": TypeError, "diagonals_over_128": ValueError,
              "bs_over_8": ValueError, "non_contiguous": ValueError,
              "wrong_shape": ValueError, "bad_index": ValueError}
@@ -314,6 +382,12 @@ def test_k7_wrapper_raises(case):
 def test_k8_wrapper_raises(case):
     with pytest.raises(K8_RAISES[case]):
         _raises_k8(case)
+
+
+@pytest.mark.parametrize("case", sorted(K12_RAISES))
+def test_k12_wrapper_raises(case):
+    with pytest.raises(K12_RAISES[case]):
+        _raises_k12(case)
 
 
 def test_mixed_dtype_factor_takes_the_twin():
