@@ -61,11 +61,17 @@ class Sampler:
 
 @dataclass
 class Run:
-    """What the metric readers see of one run."""
+    """What the metric readers see of one run.
+
+    ``rows_per_card`` counts the grid points (block rows) on one card, and
+    ``block_size`` the unknowns at each (the configuration's ``"dof"``, 1
+    where it has none): a card holds ``rows_per_card * block_size`` rows of
+    the matrix."""
 
     rows_per_card: int
     itemsize: int
     setup_s: float
+    block_size: int = 1
     window_s: float = 0.0
     system_s: list = field(default_factory=list)
     iters: list = field(default_factory=list)
@@ -105,7 +111,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, devices,
     run = Run(rows_per_card=int(np.prod(cfg["grid"])),
               itemsize=torch.empty((), dtype=getattr(
                   torch, cfg["dtype"])).element_size(),
-              setup_s=time.perf_counter() - t_start)
+              setup_s=time.perf_counter() - t_start,
+              block_size=int(cfg.get("dof", 1)))
 
     spans = Spans(route.devices, trace)
     sampler = Sampler(seed, route)

@@ -25,6 +25,11 @@ reference's (``benchmark/reference/bratu3d.py``):
   preconditioner's ``update_values`` takes, built on the device;
 - :func:`rhs`: b = -F(u) on the device.
 
+Beside :func:`judge`, the hooks that ``benchmark/readings.py`` calls to
+read what the limits are set from: :func:`control` (the reference in a
+lower precision in the program's place) and :func:`stale` (each slot
+judged against another slot's factor).
+
 Grids are (Mx, My, Mz) with x fastest, z slowest (PETSc's natural DMDA
 ordering); iterates are (Mz, My, Mx) float64 tensors.
 """
@@ -42,7 +47,7 @@ import torch
 from benchmark.reference import bratu3d as reference
 
 __all__ = ["offsets", "by_direction", "guess", "host_csr", "band_values",
-           "rhs", "newton_steps", "Inputs", "judge"]
+           "rhs", "newton_steps", "Inputs", "judge", "control", "stale"]
 
 #: The star's directions in the order of :func:`offsets`.
 DIRECTIONS = ("z-", "y-", "x-", "c", "x+", "y+", "z+")
@@ -206,6 +211,14 @@ def _cached_steps(cfg: dict, mix: dict, device, cache_dir) -> list:
     return steps
 
 
+def _system(cfg: dict, inputs: "Inputs", k: int, device):
+    """The reference's form of slot k's system, in the configuration's
+    dtype, rebuilt from the slot's iterate."""
+    return reference.System(cfg["grid"], cfg["lambda"], inputs.u_matrix(k),
+                            inputs.iterates[k], getattr(torch, cfg["dtype"]),
+                            device)
+
+
 class Inputs:
     """One run's pool: the Newton iterates and steps, the iterate each
     slot's matrix is taken at, and the first slot of the window, drawn
@@ -263,7 +276,6 @@ def judge(cfg: dict, inputs: Inputs, samples, device) -> dict:
     ``factor_gap_max`` (the widest gap of a sampled factor to the
     reference's own sweeps, on the system the reference rebuilds from the
     iterate; None where no sample holds a factor)."""
-    dtype_in = getattr(torch, cfg["dtype"])
     nb, _ = _sweeps(cfg)
     err, gap = None, None
     for smp in samples:
@@ -274,12 +286,51 @@ def judge(cfg: dict, inputs: Inputs, samples, device) -> dict:
         err = e if err is None else max(err, e)
         del want, got
         if smp.factor is not None:
-            system = reference.System(cfg["grid"], cfg["lambda"],
-                                      inputs.u_matrix(smp.slot),
-                                      inputs.iterates[smp.slot], dtype_in,
-                                      device)
+            system = _system(cfg, inputs, smp.slot, device)
             g = reference.factor_gap(
                 system, by_direction(cfg["grid"], smp.factor), nb)
             gap = g if gap is None else max(gap, g)
             del system
     return {"x_error_max": err, "factor_gap_max": gap}
+
+
+def control(cfg: dict, inputs: Inputs, device, dtype) -> dict:
+    """The control (``benchmark/readings.py --control``): the reference in
+    ``dtype`` in the program's place, x and factor of every slot of the
+    pool, judged as the program's are."""
+    opts = cfg["options"]
+    nb, na = _sweeps(cfg)
+    err, gap, iters = 0.0, 0.0, []
+    for k in range(inputs.slots):
+        system = _system(cfg, inputs, k, device)
+        x, it = reference.bicgstab(system, dtype, nb, na,
+                                   float(opts["rtol"]), int(opts["maxiter"]))
+        iters.append(it)
+        want = inputs.answer(k).to(device)
+        err = max(err, float(torch.linalg.vector_norm(
+            x.to(torch.float64).reshape(-1) - want)
+            / torch.linalg.vector_norm(want)))
+        gap = max(gap, reference.factor_gap(
+            system, reference.factor_sweeps(system, nb, dtype), nb))
+        del system, x, want
+    return {"x_error_max": err, "factor_gap_max": gap, "iters": iters}
+
+
+def stale(cfg: dict, inputs: Inputs, device) -> dict:
+    """The stale-factor reading (``benchmark/readings.py --stale``):
+    gaps[k][j] is slot k's system judged against the reference's float32
+    factor of slot j's matrix (j = k: a sound factor, to rounding)."""
+    nb, _ = _sweeps(cfg)
+    factors = []
+    for j in range(inputs.slots):
+        system = _system(cfg, inputs, j, device)
+        factors.append({d: t.float().cpu() for d, t in
+                        reference.factor_sweeps(system, nb,
+                                                torch.float32).items()})
+        del system
+    gaps = []
+    for k in range(inputs.slots):
+        system = _system(cfg, inputs, k, device)
+        gaps.append([reference.factor_gap(system, f, nb) for f in factors])
+        del system
+    return {"gaps": gaps}

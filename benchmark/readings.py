@@ -14,6 +14,12 @@ reference's float32 factor of every other slot (a re-factor that keeps an
 earlier step's factor, and a value update that keeps the earlier values,
 read so).  Prints one JSON line per reading.
 ``run.py`` never runs any of this.
+
+The control and the stale factor are the hooks ``control(cfg, inputs,
+device, dtype)`` and ``stale(cfg, inputs, device)`` of the configuration's
+problem module (``benchmark/problems/<problem>.py``).  Where a reading is
+asked for whose hook the problem does not define, this exits 2 and names
+the hook on stderr; without a CUDA card it exits 3.
 """
 
 import sys
@@ -23,75 +29,31 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
-def _inputs(cell, seed: int, device, cache_dir):
-    return cell.problem().Inputs(cell.config, cell.mix, seed, device,
-                                 cache_dir)
-
-
-def _system(cell, inputs, k: int, device):
-    import torch
-
-    from benchmark.reference import bratu3d as ref
-
-    cfg = cell.config
-    return ref.System(cfg["grid"], cfg["lambda"], inputs.u_matrix(k),
-                      inputs.iterates[k], getattr(torch, cfg["dtype"]),
-                      device)
-
-
-def _sweeps(cell) -> tuple:
-    return tuple(int(v) for v in
-                 str(cell.config["options"]["blasted_async_sweeps"])
-                 .split(","))
+def _hook(cell, name: str):
+    """(problem module, its ``name`` hook) of the cell's configuration;
+    LookupError where the problem defines no such hook."""
+    problem = cell.problem()
+    fn = getattr(problem, name, None)
+    if not callable(fn):
+        raise LookupError(f"problem {cell.config['problem']!r} "
+                          f"({problem.__file__}) defines no {name}() hook")
+    return problem, fn
 
 
 def control(cell, seed: int, device, dtype, cache_dir=None) -> dict:
-    """The reference in ``dtype`` in the program's place: x and factor of
-    every slot of seed's pool, judged as the program's are."""
-    import torch
-
-    from benchmark.reference import bratu3d as ref
-
-    opts = cell.config["options"]
-    inputs = _inputs(cell, seed, device, cache_dir)
-    nb, na = _sweeps(cell)
-    err, gap, iters = 0.0, 0.0, []
-    for k in range(inputs.slots):
-        system = _system(cell, inputs, k, device)
-        x, it = ref.bicgstab(system, dtype, nb, na, float(opts["rtol"]),
-                             int(opts["maxiter"]))
-        iters.append(it)
-        want = inputs.answer(k).to(device)
-        err = max(err, float(torch.linalg.vector_norm(
-            x.to(torch.float64).reshape(-1) - want)
-            / torch.linalg.vector_norm(want)))
-        gap = max(gap, ref.factor_gap(
-            system, ref.factor_sweeps(system, nb, dtype), nb))
-        del system, x, want
-    return {"x_error_max": err, "factor_gap_max": gap, "iters": iters}
+    """The problem's ``control(cfg, inputs, device, dtype)`` on seed's
+    pool: the reference in ``dtype`` in the program's place."""
+    problem, hook = _hook(cell, "control")
+    inputs = problem.Inputs(cell.config, cell.mix, seed, device, cache_dir)
+    return hook(cell.config, inputs, device, dtype)
 
 
 def stale(cell, device, cache_dir=None) -> dict:
-    """gaps[k][j]: slot k's system judged against the reference's float32
-    factor of slot j's matrix (j = k: a sound factor, to rounding)."""
-    import torch
-
-    from benchmark.reference import bratu3d as ref
-
-    inputs = _inputs(cell, 0, device, cache_dir)
-    nb, _ = _sweeps(cell)
-    factors = []
-    for j in range(inputs.slots):
-        system = _system(cell, inputs, j, device)
-        factors.append({d: t.float().cpu() for d, t in
-                        ref.factor_sweeps(system, nb, torch.float32).items()})
-        del system
-    gaps = []
-    for k in range(inputs.slots):
-        system = _system(cell, inputs, k, device)
-        gaps.append([ref.factor_gap(system, f, nb) for f in factors])
-        del system
-    return {"gaps": gaps}
+    """The problem's ``stale(cfg, inputs, device)`` on seed 0's pool: the
+    gaps of a factor left from another slot."""
+    problem, hook = _hook(cell, "stale")
+    inputs = problem.Inputs(cell.config, cell.mix, 0, device, cache_dir)
+    return hook(cell.config, inputs, device)
 
 
 def main() -> int:
@@ -110,10 +72,17 @@ def main() -> int:
     p.add_argument("--control", type=int, nargs="*", default=[])
     p.add_argument("--stale", action="store_true")
     a = p.parse_args()
+    cell = Cell(a.workload)
+    for name, wanted in (("control", a.control), ("stale", a.stale)):
+        if wanted:
+            try:
+                _hook(cell, name)
+            except LookupError as e:
+                print(f"readings: {e}", file=sys.stderr)
+                return 2
     if not torch.cuda.is_available():
         print("readings: no CUDA card", file=sys.stderr)
         return 3
-    cell = Cell(a.workload)
     cache = BENCH_DIR / "out" / "cache"
     devices = [torch.device("cuda", i) for i in range(cell.chips)]
     for seed in a.seeds:

@@ -1,50 +1,29 @@
-"""Each cell rehearsed at a tiny grid on the CPU, through the kernels'
-plain twins: the run, its result line and its metrics."""
-
-import json
+"""Each cell rehearsed at its configuration's tiny sizes on the CPU,
+through the kernels' plain twins: the run, its result line and its
+metrics; and the cells of ex14's problem held to its Newton sequence."""
 
 import pytest
 import torch
 
-from benchmark.harness.cli import result_line
 from benchmark.harness.manifest import load_manifest
 
-from .helpers import TINY, rehearse, tiny_cell
+from .helpers import (check_rehearses_correct, check_tiny_files,
+                      problem_cells, rehearse, tiny_cell)
 
-CELLS = [w["name"] for w in load_manifest()["workloads"]]
+MAN = load_manifest()
+CELLS = [w["name"] for w in MAN["workloads"]]
+#: The cells that run ex14's problem, held to its semantics below.
+BRATU = problem_cells("bratu3d", MAN)
 
 
 def test_every_cell_has_a_tiny_grid():
-    assert sorted(CELLS) == sorted(TINY)
+    check_tiny_files(MAN)
 
 
 @pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("trace", [False, True])
 def test_cell_rehearses_correct(name, trace):
-    cell = tiny_cell(name)
-    run, out = rehearse(cell, trace=trace)
-    assert out["correct"], out["checks"]
-    assert out["failed"] == 0 and out["attempted"] >= 1
-    assert len(run.system_s) == len(run.iters) >= 1
-    assert run.setup_s > 0 and run.window_s > 0
-    line = result_line(cell, run, out, trace, {"platform": "cpu"})
-    json.dumps(line)
-    assert list(line)[-1] == "checks"
-    names = {m["name"] for m in (cell.per_layer if trace
-                                 else cell.end_to_end)}
-    assert set(line["metrics"]) <= names
-    if trace:
-        # the CPU has no device trace: those readers find nothing
-        assert run.trace is not None and "breakdown" in line
-        for m in cell.per_layer:
-            if m["source"] != "device_trace":
-                assert m["name"] in line["metrics"], m["name"]
-            else:
-                assert m["name"] not in line["metrics"]
-    else:
-        assert names == set(line["metrics"])
-    for name_, c in line["checks"].items():
-        assert c["value"] <= c["limit"], name_
+    check_rehearses_correct(tiny_cell(name), trace)
 
 
 def test_newton_refactors_every_system_and_lagged_does_not():
@@ -69,7 +48,7 @@ def test_same_seed_same_inputs():
         [(a.start + i) % a.slots for i in range(a.slots + 1)]
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", BRATU)
 def test_pool_is_the_newton_sequence(name):
     """The pool's iterates are ex14's Newton (or lagged Newton) steps: F
     falls at every step, to under snes_rtol of F(u0) at the last iterate
