@@ -48,6 +48,7 @@ from ..ops.bstencil import (
 )
 from ..ops.sweeps import run_sweeps
 from ..sparse.bdia import BlockDiaMatrix, block_pattern_csr, shift_last
+from ..utils import profiling
 from .base import Preconditioner, PrecInfo
 from .diagnostics import bdia_block_diagonal_dominance, prec_info
 from .dia_ilu0 import dia_pairs
@@ -298,25 +299,29 @@ class BlockDiaILU0Preconditioner(Preconditioner):
 
         info0 = self._nonlinear_res(base, ilu) if self.compute_precinfo \
             else None
-        if self.nbuildsweeps == SEQUENTIAL:
-            low, nlow, _, _, fact_inner = self._build_levels()
-            ilu = bdia_factor_sweeps_soa(offsets, pairs, d0, A.mask, base,
-                                         ilu, 0, level=low,
-                                         fact_inner=fact_inner, nlev=nlow)
-        elif bdia_factor_takes_compressed_route(offsets, pairs,
-                                                self.nbuildsweeps,
-                                                self.fact_init):
-            ilu = bdia_factor_sweeps_compressed(
-                offsets, pairs, d0, A.mask, base, ilu, self.nbuildsweeps,
-                diag_mask_full=self._diag_mask_full)
-        else:
-            ilu = bdia_factor_sweeps_soa(offsets, pairs, d0, A.mask, base,
-                                         ilu, self.nbuildsweeps)
+        with profiling.annotate("precond.block_factor"):
+            if self.nbuildsweeps == SEQUENTIAL:
+                low, nlow, _, _, fact_inner = self._build_levels()
+                ilu = bdia_factor_sweeps_soa(offsets, pairs, d0, A.mask,
+                                             base, ilu, 0, level=low,
+                                             fact_inner=fact_inner,
+                                             nlev=nlow)
+            elif bdia_factor_takes_compressed_route(offsets, pairs,
+                                                    self.nbuildsweeps,
+                                                    self.fact_init):
+                ilu = bdia_factor_sweeps_compressed(
+                    offsets, pairs, d0, A.mask, base, ilu,
+                    self.nbuildsweeps, diag_mask_full=self._diag_mask_full)
+            else:
+                ilu = bdia_factor_sweeps_soa(offsets, pairs, d0, A.mask,
+                                             base, ilu, self.nbuildsweeps)
 
         # the inverse diagonal blocks come from the unrounded factor
+        with profiling.annotate("precond.block_inverse"):
+            dinv = bdia_block_inverse(ilu[d0], A.mask[d0])
         self.state = _BDiaILUState(
             ilu=ilu if self.apply_dtype is None else ilu.to(self.apply_dtype),
-            ilu_dinv=bdia_block_inverse(ilu[d0], A.mask[d0]), scale=scale)
+            ilu_dinv=dinv, scale=scale)
         if self.compute_precinfo:
             return prec_info(info0, self._nonlinear_res(base, ilu),
                              bdia_block_diagonal_dominance(A, ilu))
@@ -341,7 +346,13 @@ class BlockDiaILU0Preconditioner(Preconditioner):
 
     def apply_with(self, mat, state, r: torch.Tensor) -> torch.Tensor:
         """``r`` and the result are (nb, bs) block vectors; the sweeps carry
-        (bs, nb) column streams."""
+        (bs, nb) column streams.  A ``precond.block_apply`` span, counted in
+        the counter of that name."""
+        profiling.count("precond.block_apply")
+        with profiling.annotate("precond.block_apply"):
+            return self._apply(mat, state, r)
+
+    def _apply(self, mat, state, r: torch.Tensor) -> torch.Tensor:
         st = state
         A = mat
         bs, offsets = A.bs, A.offsets

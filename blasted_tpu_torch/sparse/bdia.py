@@ -20,11 +20,13 @@ stored", which picks the factor's kernel route.  Block vectors are
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, count
 from .bsr import BSRMatrix
 from .dia import as_device, values_tensor
 
@@ -223,11 +225,19 @@ def bdia_from_bsr(B: BSRMatrix, device="cuda") -> BlockDiaMatrix:
 def try_bdia_from_bsr(B: BSRMatrix, device="cuda",
                       max_diags: int = 32) -> BlockDiaMatrix | None:
     """Block-DIA form of ``B`` if it has at most ``max_diags`` distinct
-    block-column offsets, else ``None``."""
-    rows, offs, uniq = _block_offsets(B)
-    if uniq.shape[0] > max_diags:
-        return None
-    return _bdia_from_blocks(B, rows, offs, uniq, device)
+    block-column offsets, else ``None``.  A ``setup.bdia_from_bsr`` span;
+    counts its calls and host seconds in ``utils.profiling.counters``
+    (``setup.bdia_from_bsr``, ``setup.bdia_from_bsr_s``)."""
+    t0 = time.perf_counter()
+    try:
+        with annotate("setup.bdia_from_bsr"):
+            rows, offs, uniq = _block_offsets(B)
+            if uniq.shape[0] > max_diags:
+                return None
+            return _bdia_from_blocks(B, rows, offs, uniq, device)
+    finally:
+        count("setup.bdia_from_bsr")
+        count("setup.bdia_from_bsr_s", time.perf_counter() - t0)
 
 
 def bdia_pad_identity(A: BlockDiaMatrix, nb_pad: int) -> BlockDiaMatrix:

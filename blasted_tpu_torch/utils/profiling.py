@@ -33,19 +33,27 @@ The program's spans, each named after its layer:
 - ``sync.result``: the final host reads that build ``SolveInfo``;
 - ``precond.update``: ``Preconditioner.update_values``;
 - ``precond.compute``: ``api.compute_preconditioner``;
-- ``sync.timers``: the synchronisations of ``utils/timing.py``'s spans.
+- ``sync.timers``: the synchronisations of ``utils/timing.py``'s spans;
+- ``precond.block_factor``, ``precond.block_inverse``: a block-DIA ILU(0)
+  factor's sweeps and its final inverse diagonal blocks
+  (``precond/bdia_ilu0.py``, ``compute``);
+- ``precond.block_apply``: one apply of a block-DIA ILU(0) preconditioner;
+- ``setup.bdia_from_bsr``: one call of ``sparse/bdia.py::try_bdia_from_bsr``.
 
 :data:`counters` holds numbers that are always on, written by
 :func:`count` (a dictionary add, ~0.2 µs on the CPU): at boundaries that
 run once per call into the API, ``setup.dia_from_csr`` /
 ``setup.dia_from_csr_s`` (calls of ``sparse/dia.py::try_dia_from_csr`` and
-their host seconds) and ``setup.precond`` / ``setup.precond_s`` (calls of
+their host seconds), ``setup.bdia_from_bsr`` / ``setup.bdia_from_bsr_s``
+(the same of ``sparse/bdia.py::try_bdia_from_bsr``) and ``setup.precond`` /
+``setup.precond_s`` (calls of
 ``api.setup_local_preconditioner``; their host seconds and those of each
 context's first ``api.compute_preconditioner``, the factor that set-up
 ends with); once per apply of a DIA ILU(0) preconditioner
 (``precond/dia_ilu0.py``), ``precond.ilu_apply`` (every apply) and
 ``precond.zero_start`` (the applies whose chains start with the
-zero-start sweep K12).
+zero-start sweep K12); once per apply of a block-DIA ILU(0)
+preconditioner (``precond/bdia_ilu0.py``), ``precond.block_apply``.
 Kernel launches are counted, and their host time summed, in
 ``ops/_cuda.py`` (``launches``, ``launch_ns``), not here.
 
