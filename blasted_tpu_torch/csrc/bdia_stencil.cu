@@ -1,11 +1,13 @@
-// Block-DIA stencil kernels K5 and K6, the block inverse and the block
-// ILU(0) apply sweep K7, for Hopper (sm_90a), templated on float/double and
-// on the block size bs = 2..8 (K7: 1..8).
+// Block-DIA stencil kernels K5 and K6, the block inverse, the block
+// ILU(0) apply sweep K7 and the block head sweep K13, for Hopper (sm_90a),
+// templated on float/double and on the block size bs = 2..8 (K7 and K13:
+// 1..8).
 //
 // Hand-written counterparts of the Pallas kernels in
 // blasted_tpu/ops/bstencil.py, and of two functions the JAX package leaves
 // to XLA: the batched Gauss-Jordan inverse and the SoA apply sweeps of
-// blasted_tpu/ops/bdia.py (K7).  Each kernel has a plain PyTorch twin in
+// blasted_tpu/ops/bdia.py (K7); K13 folds the first two K7 launches of an
+// apply chain from zero into one.  Each kernel has a plain PyTorch twin in
 // blasted_tpu_torch/ops/bstencil.py with the same contract; the wrappers
 // there check every operand and call the C entry points below through
 // ctypes.  Built at first CUDA use by blasted_tpu_torch/ops/_cuda.py (one
@@ -42,6 +44,9 @@
 //   inverse at bs = 8 (136 bytes); bs = 4 and 5 in f64 do not spill (K6 126
 //   and 168 registers).  K7 takes 32 registers at every bs in f32 up to 7
 //   (40 at bs = 8) and 32-48 in f64, in either mode; it never spills.
+//   K13 holds the row's own rhs (and, upper, its dinv block) in registers:
+//   lower 32-48 (f32) and 32-72 (f64), upper 32-128 (f32) and 32-254 (f64,
+//   254 from bs = 7); it never spills.
 //
 // Arithmetic.  Built with -fmad=false, every product and sum is rounded on
 // its own, in the twin's order, and division is IEEE-rounded, so a kernel
@@ -335,6 +340,97 @@ __global__ void bdia_sweep_kernel(Sel sel, const T* __restrict__ data,
   }
 }
 
+// K13, the block head sweep — the first two K7 launches of a block ILU(0)
+// apply chain that starts from zero, in one launch.  From x = 0, K7's first
+// sweep gives t = rhs - (+-0) = rhs, so its output is rhs itself (lower)
+// or x_q = Dinv_q * rhs_q (upper, the Dinv product in K7's order), and the
+// second sweep is
+//   lower: out_i = rhs_i - sum_s sum_j data[idx_s][i*bs+j] * rhs_j[r + o_s]
+//   upper: t_j = rhs_j - sum_s sum_l data[idx_s][j*bs+l] * x_l[r + o_s],
+//          out_i = sum_j dinv[i*bs+j][r] * t_j
+// with K7's order of operations throughout.  The upper mode recomputes
+// x_q in registers from the neighbour's dinv and rhs, read through L2 as
+// K7 reads its shifted operand, so no iterate is read or written.  On
+// finite factors the output equals K7's two launches from zero bit for
+// bit (the sign of a zero may differ).  Reads beyond the ends give 0; out
+// must not alias rhs.
+// The row's own rhs and dinv are read first, into registers, so that the
+// next row's reads of the same lines (offset +-1) find them in L1: on the
+// card that took the upper mode from 244 to 190 us at ex19's shape (f64,
+// bs = 4, nb = 1,048,576) and was as fast or faster at every bs in f32 and
+// f64 but one (the lower mode at bs = 5 in f64, +4-15%), despite up to
+// 254 registers.  The neighbours' dinv reads are predicated, not branched
+// around, so they are in flight together with the blocks' reads.
+// Traffic: (nsel*bs*bs + 2*bs)*nb elements per call (+ bs*bs*nb upper),
+// against 2*(nsel*bs*bs + 3*bs)*nb (+ 2*bs*bs*nb) and a fill of bs*nb for
+// the two K7 launches it replaces.
+template <typename T, int BS, bool UPPER>
+__global__ void bdia_head_sweep_kernel(Sel sel, const T* __restrict__ data,
+                                       const T* __restrict__ dinv,
+                                       const T* __restrict__ rhs,
+                                       T* __restrict__ out, long long nb) {
+  constexpr int B2 = BS * BS;
+  for (long long r = first_row(); r < nb; r += row_stride()) {
+    T yr[BS];
+    T dr[UPPER ? B2 : 1];
+#pragma unroll
+    for (int i = 0; i < BS; ++i) yr[i] = rhs[(long long)i * nb + r];
+    if (UPPER) {
+#pragma unroll
+      for (int c = 0; c < B2; ++c) dr[c] = dinv[(long long)c * nb + r];
+    }
+    T acc[BS];
+#pragma unroll
+    for (int i = 0; i < BS; ++i) acc[i] = T(0);
+    for (int s = 0; s < sel.k; ++s) {
+      const long long q = r + sel.o[s];
+      const bool in = q >= 0 && q < nb;
+      T xv[BS];
+#pragma unroll
+      for (int j = 0; j < BS; ++j)
+        xv[j] = in ? rhs[(long long)j * nb + q] : T(0);
+      if (UPPER) {
+        // outside [0, nb) every term is 0 * 0 = +0, K7's zero read
+        T yq[BS];
+#pragma unroll
+        for (int j = 0; j < BS; ++j) yq[j] = xv[j];
+#pragma unroll
+        for (int i = 0; i < BS; ++i) {
+          const T* __restrict__ di = dinv + (long long)(i * BS) * nb + q;
+          T v = (in ? di[0] : T(0)) * yq[0];
+#pragma unroll
+          for (int j = 1; j < BS; ++j)
+            v = v + (in ? di[(long long)j * nb] : T(0)) * yq[j];
+          xv[i] = v;
+        }
+      }
+      const T* __restrict__ a = data + (long long)sel.idx[s] * B2 * nb + r;
+#pragma unroll
+      for (int i = 0; i < BS; ++i) {
+#pragma unroll
+        for (int j = 0; j < BS; ++j) {
+          const T t = a[(long long)(i * BS + j) * nb] * xv[j];
+          acc[i] = (s == 0 && j == 0) ? t : acc[i] + t;
+        }
+      }
+    }
+    T t[BS];
+#pragma unroll
+    for (int i = 0; i < BS; ++i) t[i] = yr[i] - acc[i];
+#pragma unroll
+    for (int i = 0; i < BS; ++i) {
+      if (UPPER) {
+        T v = dr[i * BS] * t[0];
+#pragma unroll
+        for (int j = 1; j < BS; ++j) v = v + dr[i * BS + j] * t[j];
+        out[(long long)i * nb + r] = v;
+      } else {
+        out[(long long)i * nb + r] = t[i];
+      }
+    }
+  }
+}
+
 // Call f with std::integral_constant<int, bs> for bs in 2..8; false for any
 // other block size.
 template <typename F>
@@ -379,11 +475,19 @@ int factor(const Offsets& o, int bs, int out_dinv, const void* base0,
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
+// with_block_size, and bs = 1 besides: the apply sweeps' block sizes.
+template <typename F>
+bool with_sweep_block_size(int bs, F&& f) {
+  if (bs != 1) return with_block_size(bs, f);
+  f(std::integral_constant<int, 1>{});
+  return true;
+}
+
 template <typename T>
 int sweep(const Sel& sel, int bs, int upper, const void* data,
           const void* dinv, const void* rhs, const void* x, void* out,
           long long nb, cudaStream_t s) {
-  auto go = [&](auto B) {
+  const bool ok = with_sweep_block_size(bs, [&](auto B) {
     constexpr int BS = decltype(B)::value;
     if (upper)
       bdia_sweep_kernel<T, BS, true><<<grid_for(nb), kThreads, 0, s>>>(
@@ -393,13 +497,36 @@ int sweep(const Sel& sel, int bs, int upper, const void* data,
       bdia_sweep_kernel<T, BS, false><<<grid_for(nb), kThreads, 0, s>>>(
           sel, (const T*)data, (const T*)dinv, (const T*)rhs, (const T*)x,
           (T*)out, nb);
-  };
-  bool ok = true;
-  if (bs == 1)
-    go(std::integral_constant<int, 1>{});
-  else
-    ok = with_block_size(bs, go);
+  });
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int head_sweep(const Sel& sel, int bs, int upper, const void* data,
+               const void* dinv, const void* rhs, void* out, long long nb,
+               cudaStream_t s) {
+  const bool ok = with_sweep_block_size(bs, [&](auto B) {
+    constexpr int BS = decltype(B)::value;
+    if (upper)
+      bdia_head_sweep_kernel<T, BS, true><<<grid_for(nb), kThreads, 0, s>>>(
+          sel, (const T*)data, (const T*)dinv, (const T*)rhs, (T*)out, nb);
+    else
+      bdia_head_sweep_kernel<T, BS, false><<<grid_for(nb), kThreads, 0, s>>>(
+          sel, (const T*)data, (const T*)dinv, (const T*)rhs, (T*)out, nb);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+// The selected block diagonals of a K7 or K13 call; false where k is out of
+// range.
+bool make_sel(const int* idx, const long long* offs, int k, Sel* sel) {
+  if (k < 0 || k > BT_MAX_DIAGS) return false;
+  sel->k = k;
+  for (int d = 0; d < BT_MAX_DIAGS; ++d) {
+    sel->idx[d] = d < k ? idx[d] : 0;
+    sel->o[d] = d < k ? offs[d] : 0;
+  }
+  return true;
 }
 
 template <typename T>
@@ -415,7 +542,8 @@ int block_inverse(int bs, const void* a, const void* mask, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64; bs in 2..8 (bt_bdia_sweep: 1..8).
+// dtype: 0 = float32, 1 = float64; bs in 2..8 (bt_bdia_sweep and
+// bt_bdia_head_sweep: 1..8).
 // Pointers are device pointers except `offs` and `idx`, host arrays.
 // Returns a cudaError_t as int (cudaErrorInvalidValue for an unsupported bs
 // or dtype).
@@ -463,20 +591,31 @@ int bt_bdia_sweep(const int* idx, const long long* offs, int k, int bs,
                   int dtype, int upper, const void* data, const void* dinv,
                   const void* rhs, const void* x, void* out, long long nb,
                   void* stream) {
-  if (k < 0 || k > BT_MAX_DIAGS || (upper && dinv == nullptr))
-    return (int)cudaErrorInvalidValue;
   Sel sel;
-  sel.k = k;
-  for (int d = 0; d < BT_MAX_DIAGS; ++d) {
-    sel.idx[d] = d < k ? idx[d] : 0;
-    sel.o[d] = d < k ? offs[d] : 0;
-  }
+  if (!make_sel(idx, offs, k, &sel) || (upper && dinv == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (nb <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return sweep<float>(sel, bs, upper, data, dinv, rhs, x, out, nb, s);
   if (dtype == 1)
     return sweep<double>(sel, bs, upper, data, dinv, rhs, x, out, nb, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int bt_bdia_head_sweep(const int* idx, const long long* offs, int k, int bs,
+                       int dtype, int upper, const void* data,
+                       const void* dinv, const void* rhs, void* out,
+                       long long nb, void* stream) {
+  Sel sel;
+  if (!make_sel(idx, offs, k, &sel) || (upper && dinv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (nb <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return head_sweep<float>(sel, bs, upper, data, dinv, rhs, out, nb, s);
+  if (dtype == 1)
+    return head_sweep<double>(sel, bs, upper, data, dinv, rhs, out, nb, s);
   return (int)cudaErrorInvalidValue;
 }
 

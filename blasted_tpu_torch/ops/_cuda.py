@@ -67,6 +67,8 @@ _SIGNATURES = {
     "bt_bdia_block_inverse": (_I32, _I32, _P, _P, _P, _I64, _P),
     "bt_bdia_sweep": (_IDX, _OFFS, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
                       _P, _I64, _P),
+    "bt_bdia_head_sweep": (_IDX, _OFFS, _I32, _I32, _I32, _I32, _P, _P, _P,
+                           _P, _I64, _P),
     "bt_plain_factor_sweep": (_OFFS, _I32, _I32, _I32, _P, _P, _P, _P, _P,
                               _I64, _P),
     "bt_padded_mv": (_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _I32,
@@ -77,8 +79,9 @@ _SIGNATURES = {
 
 #: The source under ``csrc/`` of each kernel, by the name its launches are
 #: counted under (K6 by mode: the Dinv-emitting sweeps and the U0-emitting
-#: final sweep; K7, K10 and the zero-start sweep by mode: the unit-lower
-#: and the upper apply sweep; K9-K11 are the padded path's).
+#: final sweep; K7, K10, the zero-start sweep K12 and the block head sweep
+#: K13 by mode: the unit-lower and the upper apply sweep; K9-K11 are the
+#: padded path's).
 KERNEL_SOURCES = {
     "dia_spmv": "dia_stencil.cu", "tri_sweep": "dia_stencil.cu",
     "zero_start_lower_sweep": "dia_stencil.cu",
@@ -88,6 +91,8 @@ KERNEL_SOURCES = {
     "bfactor_u0": "bdia_stencil.cu", "block_inverse": "bdia_stencil.cu",
     "bdia_lower_sweep": "bdia_stencil.cu",
     "bdia_upper_sweep": "bdia_stencil.cu",
+    "bdia_head_lower_sweep": "bdia_stencil.cu",
+    "bdia_head_upper_sweep": "bdia_stencil.cu",
     "plain_factor_sweep": "dia_stencil.cu",
     "padded_spmv": "padded.cu", "padded_lower_sweep": "padded.cu",
     "padded_upper_sweep": "padded.cu", "padded_factor_sweep": "padded.cu",

@@ -1,12 +1,14 @@
-"""Block-DIA stencil kernels K5, K6 and K7 and the block inverse:
+"""Block-DIA stencil kernels K5, K6, K7 and K13 and the block inverse:
 wrappers, plain twins, and the block factor's route rule.
 
 Counterparts of the Pallas kernels of ``blasted_tpu/ops/bstencil.py`` and
-of two functions the JAX package leaves to XLA.  Each kernel is CUDA C++ in
-``csrc/bdia_stencil.cu``, templated on bs = 2…8 (K7: 1…8); beside it here
-stands its plain PyTorch twin with the same contract (the same operations
-in the same order, the same exact ``0 → 1`` pivot guard, zero reads beyond
-the ends):
+of two functions the JAX package leaves to XLA, and K13, the block head
+sweep: K7's first two sweeps of an apply chain from zero in one launch (in
+JAX two sweeps of the ``fori_loop``).  Each kernel is CUDA C++ in
+``csrc/bdia_stencil.cu``, templated on bs = 2…8 (K7, K13: 1…8); beside it
+here stands its plain PyTorch twin with the same contract (the same
+operations in the same order, the same exact ``0 → 1`` pivot guard, zero
+reads beyond the ends):
 
 =====  ========================  ====================  =====================
 K      wrapper                   twin                  replaces
@@ -16,21 +18,22 @@ K6     bdia_factor_stencil       bdia_factor_ref       ``_bfactor_call``
 —      bdia_block_inverse        block_inverse_ref     ``gj_inverse_rows``
 K7 L   bdia_lower_sweep_stencil  bdia_lower_sweep_ref  ``soa_unit_lower_sweep``
 K7 U   bdia_upper_sweep_stencil  bdia_upper_sweep_ref  ``soa_upper_solve_sweep``
+K13    bdia_head_sweep_stencil   bdia_head_sweep_ref   two K7 sweeps from zero
 =====  ========================  ====================  =====================
 
-The last three are XLA work in the JAX package (``ops/bstencil.py`` and
+The inverse and K7 are XLA work in the JAX package (``ops/bstencil.py`` and
 ``ops/bdia.py`` there), with no ``pallas_call``.
 
 A wrapper checks its operands and then dispatches on their device: a CPU
 tensor runs the twin, a CUDA tensor launches the kernel (building it at the
 first use), and any other device raises.  No CUDA call ever falls back to
-the twin.  Launches are counted per kernel, K6 and K7 per mode,
+the twin.  Launches are counted per kernel, K6, K7 and K13 per mode,
 in ``_cuda.launches``, and per card in ``_cuda.launches_by_device``.
 
 Operands are the container's own layout: block-diagonal values are
 ``(bs², nb)`` component slabs (row i·bs + j = block entry (i, j)), block
-vectors ``(nb, bs)`` (K7: ``(bs, nb)`` column streams, the apply's layout).
-K5 and K7 read the factor's ``(k, bs², nb)`` data in place;
+vectors ``(nb, bs)`` (K7, K13: ``(bs, nb)`` column streams, the apply's
+layout).  K5, K7 and K13 read the factor's ``(k, bs², nb)`` data in place;
 the Pallas kernels' restacking for TPU sublanes (``stack_spmv_coeffs``,
 ``stack_factor_coeffs``) and their padded frame have no counterpart.
 """
@@ -55,11 +58,12 @@ __all__ = [
     "soa_mv_streams", "soa_dinv_mul",
     "bdia_lower_sweep_stencil", "bdia_lower_sweep_ref",
     "bdia_upper_sweep_stencil", "bdia_upper_sweep_ref",
+    "bdia_head_sweep_stencil", "bdia_head_sweep_ref",
     "bdia_factor_takes_compressed_route",
 ]
 
 MIN_BS, MAX_BS = 2, 8    # the block sizes csrc/bdia_stencil.cu instantiates
-SWEEP_MIN_BS = 1         # K7 also takes bs = 1
+SWEEP_MIN_BS = 1         # K7 and K13 also take bs = 1
 
 
 # ------------------------------------------------------------ operand checks
@@ -257,9 +261,9 @@ def bdia_upper_sweep_ref(data, dinv, offsets, upper, y_cols, z_cols):
 
 
 def _sweep_check(name: str, data, offsets, sel, vectors: dict, dinv):
-    """Validate one K7 call: ``data`` (k, bs², nb) with k = len(offsets) ≤
-    128, ``sel`` indices into it, the (bs, nb) column streams ``vectors``
-    and ``dinv`` (bs², nb) in the upper mode."""
+    """Validate one K7 or K13 call: ``data`` (k, bs², nb) with
+    k = len(offsets) ≤ 128, ``sel`` indices into it, the (bs, nb) column
+    streams ``vectors`` and ``dinv`` (bs², nb) in the upper mode."""
     if len(offsets) > MAX_DIAGS:
         raise ValueError(f"{name}: {len(offsets)} diagonals exceed "
                          f"{MAX_DIAGS}")
@@ -278,19 +282,22 @@ def _sweep_check(name: str, data, offsets, sel, vectors: dict, dinv):
                          f"0..{len(offsets) - 1}")
 
 
-def _sweep_launch(name: str, data, offsets, sel, dinv, rhs, x):
-    """Launch K7 (the mode is ``dinv``'s presence) into a fresh output;
-    ``rhs`` is z (lower) or y (upper), ``x`` the shifted operand."""
+def _sweep_launch(name: str, entry: str, data, offsets, sel, dinv, rhs,
+                  *x):
+    """Launch K7 or K13 (``entry``; the mode is ``dinv``'s presence) into
+    a fresh output; ``rhs`` is z (lower) or y (upper), ``x`` K7's shifted
+    operand (K13 has none)."""
     bs, nb = rhs.shape
     idx = (ctypes.c_int * max(1, len(sel)))(*sel)
     offs = (ctypes.c_longlong * max(1, len(sel)))(*(offsets[d] for d in sel))
     with torch.cuda.device(rhs.device):
         out = torch.empty_like(rhs)
-        _cuda.launch(name, "bt_bdia_sweep", rhs.device, idx, offs, len(sel),
+        _cuda.launch(name, entry, rhs.device, idx, offs, len(sel),
                      bs, _dcode(rhs.dtype), int(dinv is not None),
                      data.data_ptr(),
                      None if dinv is None else dinv.data_ptr(),
-                     rhs.data_ptr(), x.data_ptr(), out.data_ptr(), nb)
+                     rhs.data_ptr(), *(t.data_ptr() for t in x),
+                     out.data_ptr(), nb)
     return out
 
 
@@ -310,8 +317,8 @@ def bdia_lower_sweep_stencil(data, offsets, lower, z_cols, y_cols):
                  {"z": z_cols, "y": y_cols}, None)
     if z_cols.device.type == "cpu":
         return bdia_lower_sweep_ref(data, offsets, lower, z_cols, y_cols)
-    return _sweep_launch("bdia_lower_sweep", data, offsets, lower, None,
-                         z_cols, y_cols)
+    return _sweep_launch("bdia_lower_sweep", "bt_bdia_sweep", data, offsets,
+                         lower, None, z_cols, y_cols)
 
 
 def bdia_upper_sweep_stencil(data, dinv, offsets, upper, y_cols, z_cols):
@@ -324,8 +331,39 @@ def bdia_upper_sweep_stencil(data, dinv, offsets, upper, y_cols, z_cols):
                  {"y": y_cols, "z": z_cols}, dinv)
     if y_cols.device.type == "cpu":
         return bdia_upper_sweep_ref(data, dinv, offsets, upper, y_cols, z_cols)
-    return _sweep_launch("bdia_upper_sweep", data, offsets, upper, dinv,
-                         y_cols, z_cols)
+    return _sweep_launch("bdia_upper_sweep", "bt_bdia_sweep", data, offsets,
+                         upper, dinv, y_cols, z_cols)
+
+
+# ------------------------------------------------- K13: head sweep ---------
+
+def bdia_head_sweep_ref(data, offsets, sel, rhs_cols, dinv=None):
+    """Twin of K13: K7's twin on the iterate that K7's first sweep from
+    zero yields, ``rhs`` (lower) or ``dinv · rhs`` (upper, with ``dinv``)."""
+    if dinv is None:
+        return bdia_lower_sweep_ref(data, offsets, sel, rhs_cols, rhs_cols)
+    x = soa_dinv_mul(dinv, rhs_cols, rhs_cols.shape[0])
+    return bdia_upper_sweep_ref(data, dinv, offsets, sel, rhs_cols, x)
+
+
+def bdia_head_sweep_stencil(data, offsets, sel, rhs_cols, dinv=None):
+    """K13, the block head sweep: the second of two K7 sweeps from a zero
+    iterate, in one launch.  Without ``dinv`` the lower mode,
+    ``z − L z`` over the block diagonals ``sel``; with it the upper mode,
+    ``U_ii⁻¹ (y − U x)`` with ``x = U_ii⁻¹ y`` recomputed for each
+    neighbour.  On finite factors it equals those two K7 sweeps bit for
+    bit, up to the sign of a zero.  The operands' contract, the fresh
+    output and the device rule are K7's (:func:`bdia_lower_sweep_stencil`);
+    counted as ``bdia_head_lower_sweep`` or, with ``dinv``,
+    ``bdia_head_upper_sweep``."""
+    _sweep_check("bdia_head_sweep", data, offsets, sel, {"rhs": rhs_cols},
+                 dinv)
+    if rhs_cols.device.type == "cpu":
+        return bdia_head_sweep_ref(data, offsets, sel, rhs_cols, dinv)
+    name = "bdia_head_lower_sweep" if dinv is None \
+        else "bdia_head_upper_sweep"
+    return _sweep_launch(name, "bt_bdia_head_sweep", data, offsets, sel, dinv,
+                         rhs_cols)
 
 
 # ------------------------------------------------- K6: compressed factor ----

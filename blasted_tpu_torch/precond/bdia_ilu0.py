@@ -24,7 +24,14 @@ where every diagonal block is stored, else the torch u0-state chain with
 the same iterates) or the plain per-sweep chain (torch operations).  Block
 inverses (the JAX package's ``_soa_gj_inverse``) go through
 ``bdia_block_inverse``; the apply sweeps are kernel K7 (``ops/bdia.py``),
-the level-scheduled (SEQUENTIAL) ones included.
+the level-scheduled (SEQUENTIAL) ones included.  An apply from zero
+(``ApplyInit.ZERO``) with at least two sweeps and the factor in the
+vector's dtype starts each chain with kernel K13, the block head sweep,
+which computes K7's first two sweeps from zero in one launch: the first of
+them yields the right-hand side (lower) or the inverse diagonal blocks
+times it (upper), so the chain runs one K13 and ``napplysweeps − 2`` K7
+launches a triangle, no fill, and equals the K7 chain from zero bit for
+bit on finite factors (the sign of a zero aside).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ..ops.bstencil import (
     bdia_block_inverse,
     bdia_factor_stencil,
     bdia_factor_takes_compressed_route,
+    bdia_head_sweep_stencil,
 )
 from ..ops.sweeps import run_sweeps
 from ..sparse.bdia import BlockDiaMatrix, block_pattern_csr, shift_last
@@ -347,7 +355,8 @@ class BlockDiaILU0Preconditioner(Preconditioner):
     def apply_with(self, mat, state, r: torch.Tensor) -> torch.Tensor:
         """``r`` and the result are (nb, bs) block vectors; the sweeps carry
         (bs, nb) column streams.  A ``precond.block_apply`` span, counted in
-        the counter of that name."""
+        the counter of that name; the applies whose chains start with K13
+        are counted in ``precond.block_zero_start`` too."""
         profiling.count("precond.block_apply")
         with profiling.annotate("precond.block_apply"):
             return self._apply(mat, state, r)
@@ -375,6 +384,22 @@ class BlockDiaILU0Preconditioner(Preconditioner):
                     st.ilu, st.ilu_dinv, offsets, upper, yc, cols_of(zz),
                     bs)),
                 torch.zeros_like(z))
+        elif (self.apply_init == ApplyInit.ZERO and self.napplysweeps >= 2
+              and st.ilu.dtype == zc.dtype):
+            # K13 heads each chain; the dtypes are K7's route (ops/bdia.py)
+            profiling.count("precond.block_zero_start")
+            rest = self.napplysweeps - 2
+            yc = run_sweeps(
+                rest,
+                lambda y: soa_unit_lower_sweep(st.ilu, offsets, lower, zc, y,
+                                               bs),
+                bdia_head_sweep_stencil(st.ilu, offsets, lower, zc))
+            zout = stack_cols(run_sweeps(
+                rest,
+                lambda zz: soa_upper_solve_sweep(st.ilu, st.ilu_dinv, offsets,
+                                                 upper, yc, zz, bs),
+                bdia_head_sweep_stencil(st.ilu, offsets, upper, yc,
+                                        st.ilu_dinv)))
         else:
             zero = torch.zeros_like(zc)
             yc = run_sweeps(

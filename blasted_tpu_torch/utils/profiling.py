@@ -53,7 +53,9 @@ ends with); once per apply of a DIA ILU(0) preconditioner
 (``precond/dia_ilu0.py``), ``precond.ilu_apply`` (every apply) and
 ``precond.zero_start`` (the applies whose chains start with the
 zero-start sweep K12); once per apply of a block-DIA ILU(0)
-preconditioner (``precond/bdia_ilu0.py``), ``precond.block_apply``.
+preconditioner (``precond/bdia_ilu0.py``), ``precond.block_apply`` (every
+apply) and ``precond.block_zero_start`` (the applies whose chains start
+with the block head sweep K13).
 Kernel launches are counted, and their host time summed, in
 ``ops/_cuda.py`` (``launches``, ``launch_ns``), not here.
 

@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 It builds the CUDA kernels from ``blasted_tpu_torch/csrc`` (K1-K4, the
 plain factor sweep K8 and the zero-start apply sweep K12 of the scalar
-banded path; K5, K6, the block inverse
-and the apply sweep K7 of the point-block path; K9-K11 of the general
+banded path; K5, K6, the block inverse, the apply sweep K7 and the block
+head sweep K13 of the point-block path; K9-K11 of the general
 padded path: the padded SpMV, the ILU(0) apply sweep in two modes and the
 factor sweep over the ILU pair lists) and checks each against its plain
 PyTorch twin on the card: K1-K4, K8 and K12 at the shapes of the scalar
@@ -16,8 +16,12 @@ main path (the npts=162 band in float32; K8 in its tuple form, which
 [main] runs, and its stacked form, which the distributed factor runs; K12
 in both modes, bitwise, and bitwise equal to the two K2 sweeps from zero
 it replaces, up to the sign of a zero) and at npts=48 in float64; K5, both modes of K6, the block inverse and both
-modes of K7 at bs=4 on the g=128 block band in float32 (the block main
-path's shapes), at bs=5, g=96 in float32 and at bs=4, g=24 in float64;
+modes of K7 and K13 at bs=4 on the g=128 block band in float32 (the block
+main path's shapes), at bs=5, g=96 in float32 and at bs=4, g=24 in
+float64 (K13 bitwise, and bitwise equal to K7's two launches from zero);
+``[ex19-head]`` K13 at the benchmark's ex19 shape (bs=4, float64, the
+5-point block star of a 1024² grid) the same way, timed beside K7, and an
+apply's two chains folded against K7's chains from zero;
 K9-K11, each bitwise, on the padded forms of the two main systems in
 float32 (the padded paths' shapes), of the 48³ Poisson matrix and the
 bs=4 g=24 block system in float64 and of a bs=5 g=48 block system.  At
@@ -45,9 +49,9 @@ in (0, 1.05] and the bench's JSON line must parse.  It then drives both main pat
   times, K4 once at ILU(0) 4,4) and BiCGSTAB;
 - block: a random bs=4 block system on the 7-point band of a 128³ block
   grid (nb = 2,097,152, n = 8,388,608) in float32, block ILU(0) 4,4 (K6
-  factor, K7 apply: four sweeps of each mode per apply) and BiCGSTAB; then
+  factor; apply: each triangle one K13 and two K7) and BiCGSTAB; then
   the same with ``-blasted_apply_dtype bfloat16`` ([block-mixed]: the
-  apply's dtype rule, the twin's products and no K7);
+  apply's dtype rule, the twin's products and no K7 or K13);
 
 checks each true residual and that each solve launched its own kernels and
 none of the other path's, re-factors and re-solves for steady-state times,
@@ -242,7 +246,8 @@ from blasted_tpu_torch.sparse.dia import shift_read
 
 # the TPU kernel each one replaces: file:line of its pallas_call (the block
 # inverse, K7 and K8: the JAX functions XLA runs, with no pallas_call; K12:
-# K2's first two calls of an apply chain from zero)
+# K2's first two calls of an apply chain from zero; K13: the first two
+# steps of the block apply's fori_loop from zero)
 REPLACES = {
     "dia_spmv": "blasted_tpu/ops/stencil.py:221",
     "tri_sweep": "blasted_tpu/ops/stencil.py:295",
@@ -256,6 +261,8 @@ REPLACES = {
     "block_inverse": "blasted_tpu/ops/bstencil.py:284",
     "bdia_lower_sweep": "blasted_tpu/ops/bdia.py:66",
     "bdia_upper_sweep": "blasted_tpu/ops/bdia.py:73",
+    "bdia_head_lower_sweep": "blasted_tpu/precond/bdia_ilu0.py:455",
+    "bdia_head_upper_sweep": "blasted_tpu/precond/bdia_ilu0.py:461",
     "plain_factor_sweep": "blasted_tpu/precond/dia_ilu0.py:75",
     "padded_spmv": "blasted_tpu/ops/spmv.py:23",
     "padded_lower_sweep": "blasted_tpu/ops/sweeps.py:86",
@@ -272,6 +279,8 @@ NO_LIBRARY = {
                         "computes only y − U z",
     "zero_start_upper_sweep": "dinv·(y − U (y·dinv)) is three products: "
                               "torch.addmv computes only y − U z",
+    "bdia_head_upper_sweep": "dinv·(y − U (dinv·y)) is three products: "
+                             "torch.addmv computes only y − U z",
     "plain_factor_sweep": "no PyTorch call computes a Chow-Patel sweep "
                           "(shifted products, a guarded division, a "
                           "re-mask)",
@@ -317,6 +326,11 @@ KRYLOV_RELRES = 1.1 * KRYLOV_RTOL
 X_REF_SEED = 17
 # K12's two modes: the head of each ILU(0) apply chain from zero
 ZERO_START = ("zero_start_lower_sweep", "zero_start_upper_sweep")
+# K13's two modes: the head of each block ILU(0) apply chain from zero
+BLOCK_HEAD = ("bdia_head_lower_sweep", "bdia_head_upper_sweep")
+# [ex19-head]: ex19's block band (PETSc SNES ex19 at 1024², 4 dof, f64),
+# the 5-point block star of the benchmark's ex19 cell
+EX19_NX, EX19_BS = 1024, 4
 # ILU(0) 4,4 on the 160³ band: K1, K2 and K12 (each apply from zero); its
 # factor is plain (R4): K8 once per sweep
 ILU_KERNELS = {"dia_spmv": None, "tri_sweep": None,
@@ -569,8 +583,8 @@ def kernel_cases(op):
 
 
 def block_kernel_cases(op):
-    """(name, kernel call, twin call) for K5, K6 in each mode and the block
-    inverse."""
+    """(name, kernel call, twin call) for K5, K6 in each mode, the block
+    inverse, and K7 and K13 in each mode."""
     offs, data, po = op["offsets"], op["data"], op["pair_offs"]
     fac = (po, op["base0"], op["base_l"], op["ubs"], op["dinv"])
     lo, up, z, y = [0, 1, 2], [4, 5, 6], op["z_cols"], op["y_cols"]
@@ -605,6 +619,15 @@ def block_kernel_cases(op):
                                                        up, y, z),
              lambda: bstencil.bdia_upper_sweep_ref(data, op["dinv"], offs, up,
                                                    y, z))],
+        # K13 in each mode on the same blocks, from z
+        "bdia_head_lower_sweep": [
+            (lambda: bstencil.bdia_head_sweep_stencil(data, offs, lo, z),
+             lambda: bstencil.bdia_head_sweep_ref(data, offs, lo, z))],
+        "bdia_head_upper_sweep": [
+            (lambda: bstencil.bdia_head_sweep_stencil(data, offs, up, z,
+                                                      op["dinv"]),
+             lambda: bstencil.bdia_head_sweep_ref(data, offs, up, z,
+                                                  op["dinv"]))],
     }
 
 
@@ -701,18 +724,26 @@ def scalar_work(name: str, n: int, isz: int) -> tuple:
     return streams * n * isz, flops * n
 
 
-def block_work(name: str, nb: int, bs: int, npair: int, isz: int) -> tuple:
-    """(bytes, operations) of one timed call of K5, K6 or the inverse."""
+def block_work(name: str, nb: int, bs: int, npair: int, isz: int,
+               nsel: int = 3) -> tuple:
+    """(bytes, operations) of one timed call of K5, K6, the inverse, K7 or
+    K13 (K7 and K13 over ``nsel`` blocks a mode)."""
     b2 = bs * bs
     contraction = npair * (2 * b2 * (2 * bs - 1) + b2)
-    sweep = (3 * b2 + 3 * bs) * nb * isz, (2 * 3 * b2 + bs) * nb
+    sweep = (nsel * b2 + 3 * bs) * nb * isz, (2 * nsel * b2 + bs) * nb
+    dinv_mul = (2 * b2 - bs) * nb
     return {
+        # K13: K7's blocks, the right-hand side and the output (no
+        # iterate); the upper mode also the inverse diagonal, which it
+        # multiplies by once for the output and once for each neighbour
+        "bdia_head_lower_sweep": (sweep[0] - bs * nb * isz, sweep[1]),
+        "bdia_head_upper_sweep": (sweep[0] + (b2 - bs) * nb * isz,
+                                  sweep[1] + (1 + nsel) * dinv_mul),
         # K7 on the 7-point band's 3 lower (3 upper) blocks: the blocks,
         # the two column streams read and the one written; the upper mode
         # also reads the inverse diagonal and multiplies by it
         "bdia_lower_sweep": sweep,
-        "bdia_upper_sweep": (sweep[0] + b2 * nb * isz,
-                             sweep[1] + (2 * b2 - bs) * nb),
+        "bdia_upper_sweep": (sweep[0] + b2 * nb * isz, sweep[1] + dinv_mul),
         "bspmv": ((7 * b2 + 2 * bs) * nb * isz, 2 * 7 * b2 * nb),
         "bfactor_dinv": ((b2 * (1 + 2 * npair) + 2 * b2) * nb * isz,
                          (contraction + gj_flops(bs)) * nb),
@@ -753,7 +784,9 @@ def block_library_of(name: str, op):
     """The one PyTorch call computing K5's, the inverse's or K7's lower
     mode's function, else None."""
     make = {"bspmv": block_library, "block_inverse": inverse_library,
-            "bdia_lower_sweep": lower_block_library}.get(name)
+            "bdia_lower_sweep": lower_block_library,
+            "bdia_head_lower_sweep": lambda o: lower_block_library(
+                o, "z_cols")}.get(name)
     return make and make(op)
 
 
@@ -810,8 +843,10 @@ def zero_start_is_k2_from_zero(label: str, lo, low, up, upp, dinv,
 
 def check_block_kernels(g: int, bs: int, dtype, seed: int,
                         timed_run: bool) -> dict:
-    """K5, K6 in each mode and the block inverse against their twins on the
-    card; returns per-kernel {max_abs_err, rel_err[, times and bound]}."""
+    """K5, K6 in each mode, the block inverse, and K7 and K13 in each mode
+    against their twins on the card (K13 bitwise, and bitwise equal to
+    K7's two launches from zero); returns per-kernel {max_abs_err,
+    rel_err[, times and bound]}."""
     op = block_operands(g, bs, dtype, "cuda", seed)
     nb, isz = g ** 3, dtype.itemsize
     npair = len(op["pair_offs"])
@@ -819,6 +854,9 @@ def check_block_kernels(g: int, bs: int, dtype, seed: int,
     for name, cases in block_kernel_cases(op).items():
         rec = compare(name, f"bs={bs} g={g} {dtype}", cases, dtype)
         rec["shape"] = f"bs={bs} g={g} nb={nb} {str(dtype)[6:]}"
+        if name in BLOCK_HEAD and rec["max_abs_err"] != 0.0:
+            fail(f"{name} bs={bs} g={g} {dtype}: not bitwise equal to its "
+                 f"twin ({rec})")
         if timed_run:
             kernel, twin = cases[-1]
             timed(rec, name, kernel, twin,
@@ -827,6 +865,128 @@ def check_block_kernels(g: int, bs: int, dtype, seed: int,
         out[name] = rec
         print(f"[kernel] {name} bs={bs} g={g} nb={nb} {str(dtype)[6:]}: "
               + " ".join(f"{k}={v}" for k, v in rec.items()), flush=True)
+    head_is_k7_from_zero(f"bs={bs} g={g} {str(dtype)[6:]}", op["data"],
+                         op["offsets"], [0, 1, 2], [4, 5, 6], op["dinv"],
+                         op["z_cols"])
+    return out
+
+
+def head_is_k7_from_zero(label: str, data, offsets, lo, up, dinv,
+                         rhs) -> None:
+    """K13 in each mode against its twin, bitwise, and against the two K7
+    launches from a zero iterate that it replaces, bitwise after ``+ 0.0``
+    (which clears the sign of a zero)."""
+    zero = torch.zeros_like(rhs)
+    for mode, sel, di in (("lower", lo, None), ("upper", up, dinv)):
+        got = bstencil.bdia_head_sweep_stencil(data, offsets, sel, rhs, di)
+        twin = bstencil.bdia_head_sweep_ref(data, offsets, sel, rhs, di)
+        if di is None:
+            two = bstencil.bdia_lower_sweep_stencil(
+                data, offsets, sel, rhs, bstencil.bdia_lower_sweep_stencil(
+                    data, offsets, sel, rhs, zero))
+        else:
+            two = bstencil.bdia_upper_sweep_stencil(
+                data, di, offsets, sel, rhs, bstencil.bdia_upper_sweep_stencil(
+                    data, di, offsets, sel, rhs, zero))
+        torch.cuda.synchronize()
+        if not torch.equal(got, twin) or \
+                not torch.equal(got + 0.0, two + 0.0):
+            fail(f"{label}: K13 {mode} off its twin by "
+                 f"{float((got - twin).abs().max())} or off K7's two "
+                 f"sweeps from zero by {float((got - two).abs().max())}")
+    print(f"[kernel] K13 {label}: both modes bitwise equal to their twins "
+          "and to K7's two sweeps from zero", flush=True)
+
+
+def star_operands(nx: int, bs: int, dtype, device, seed: int) -> dict:
+    """K7's and K13's operands on ex19's 5-point block star over an nx²
+    grid (offsets −nx, −1, 0, 1, nx): entries 0.25·N(0,1) inside the
+    structural mask, 10 added to the diagonal of each diagonal block, the
+    inverse of the diagonal blocks and a (bs, nb) right-hand side."""
+    nb, b2 = nx * nx, bs * bs
+    offsets = (-nx, -1, 0, 1, nx)
+    r = torch.arange(nb, device=device)
+    i0, j0 = r % nx, r // nx
+    mask = torch.stack([j0 > 0, i0 > 0, torch.ones_like(i0, dtype=bool),
+                        i0 < nx - 1, j0 < nx - 1])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    data = 0.25 * torch.randn((5, b2, nb), generator=gen, dtype=dtype,
+                              device=device)
+    data[2, [i * bs + i for i in range(bs)]] += 10.0
+    data = torch.where(mask[:, None], data, torch.zeros_like(data))
+    return {"offsets": offsets, "data": data,
+            "dinv": bstencil.block_inverse_ref(data[2]),
+            "rhs": torch.randn((bs, nb), generator=gen, dtype=dtype,
+                               device=device)}
+
+
+def ex19_head() -> dict:
+    """[ex19-head]: K13 at the shape of the benchmark's ex19 cell (bs = 4,
+    f64, nb = 1,048,576, the 5-point block star) held bitwise to its twin
+    and to K7's two launches from zero, then timed in each mode beside K7,
+    and one triangle pair of an apply with four sweeps a triangle timed
+    both ways: K13 + 2 K7 a triangle against a fill + 4 K7."""
+    dtype = torch.float64
+    op = star_operands(EX19_NX, EX19_BS, dtype, "cuda", seed=19)
+    offs, data, dinv, rhs = op["offsets"], op["data"], op["dinv"], op["rhs"]
+    nb, isz = EX19_NX ** 2, dtype.itemsize
+    lo, up = [0, 1], [3, 4]
+    head_is_k7_from_zero("[ex19-head]", data, offs, lo, up, dinv, rhs)
+    y1 = bstencil.bdia_head_sweep_stencil(data, offs, lo, rhs)
+
+    def chain(head: bool):
+        rest = 2 if head else 4
+
+        def run():
+            zero = None if head else torch.zeros_like(rhs)
+            y = bstencil.bdia_head_sweep_stencil(data, offs, lo, rhs) \
+                if head else zero
+            for _ in range(rest):
+                y = bstencil.bdia_lower_sweep_stencil(data, offs, lo, rhs, y)
+            z = bstencil.bdia_head_sweep_stencil(data, offs, up, y, dinv) \
+                if head else zero
+            for _ in range(rest):
+                z = bstencil.bdia_upper_sweep_stencil(data, dinv, offs, up, y,
+                                                      z)
+            return z
+        return run
+
+    got, want = chain(True)(), chain(False)()
+    torch.cuda.synchronize()
+    if not torch.equal(got + 0.0, want + 0.0):
+        fail(f"[ex19-head]: the folded chain differs from K7's chain from "
+             f"zero by {float((got - want).abs().max())}")
+    calls = {
+        "bdia_head_lower_sweep": (
+            lambda: bstencil.bdia_head_sweep_stencil(data, offs, lo, rhs),
+            lambda: bstencil.bdia_head_sweep_ref(data, offs, lo, rhs)),
+        "bdia_head_upper_sweep": (
+            lambda: bstencil.bdia_head_sweep_stencil(data, offs, up, y1,
+                                                     dinv),
+            lambda: bstencil.bdia_head_sweep_ref(data, offs, up, y1, dinv)),
+        "bdia_lower_sweep": (
+            lambda: bstencil.bdia_lower_sweep_stencil(data, offs, lo, rhs,
+                                                      y1),
+            lambda: bstencil.bdia_lower_sweep_ref(data, offs, lo, rhs, y1)),
+        "bdia_upper_sweep": (
+            lambda: bstencil.bdia_upper_sweep_stencil(data, dinv, offs, up,
+                                                      y1, rhs),
+            lambda: bstencil.bdia_upper_sweep_ref(data, dinv, offs, up, y1,
+                                                  rhs)),
+    }
+    out = {}
+    for name, (kernel, twin) in calls.items():
+        rec = {"shape": f"ex19 bs={EX19_BS} nx={EX19_NX} nb={nb} float64"}
+        timed(rec, name, kernel, twin, *block_work(name, nb, EX19_BS, 2, isz,
+                                                   nsel=2), dtype)
+        out[name] = rec
+        print(f"[ex19-head] {name}: " + json.dumps(rec), flush=True)
+    rec = {"apply_bitwise_k7_chain": True,
+           "apply_pair_ms_folded": cuda_ms(chain(True))[0],
+           "apply_pair_ms_k7_chain": cuda_ms(chain(False))[0]}
+    print("[ex19-head] " + json.dumps(rec), flush=True)
+    del op
+    torch.cuda.empty_cache()
     return out
 
 
@@ -853,16 +1013,17 @@ def block_library(op):
     return lambda: torch.mv(A, xf)
 
 
-def lower_block_library(op):
+def lower_block_library(op, y_key: str = "y_cols"):
     """One PyTorch call computing K7's lower mode, ``z − L y``:
     ``torch.addmv`` with the CUDA BSR tensor of the band's strictly lower
     blocks on the flat (nb·bs,) forms of z and y, or, where this torch
-    refuses BSR there, its CSR form (said on a line of its own)."""
+    refuses BSR there, its CSR form (said on a line of its own).  With
+    ``y_key`` "z_cols" it computes K13's lower mode, ``z − L z``."""
     L = bsr_of_band(op["offsets"], op["data"], op["mask"], lower_only=True)
     zf = op["z_cols"].t().contiguous().reshape(-1)
-    yf = op["y_cols"].t().contiguous().reshape(-1)
+    yf = op[y_key].t().contiguous().reshape(-1)
     want = bstencil.bdia_lower_sweep_ref(op["data"], op["offsets"], [0, 1, 2],
-                                         op["z_cols"], op["y_cols"])
+                                         op["z_cols"], op[y_key])
     try:
         got = torch.addmv(zf, L, yf, alpha=-1)
         form = "bsr"
@@ -1188,6 +1349,18 @@ def apply_counts(opts: dict, iters: int) -> dict:
             **dict.fromkeys(ZERO_START, applies)}
 
 
+def block_apply_counts(opts: dict, iters: int) -> dict:
+    """K7's and K13's launches in a single-card BiCGSTAB solve of
+    ``iters`` iterations with block-DIA ILU(0) applied from zero (two
+    applies an iteration): each triangle one K13 and ``napply − 2`` K7 an
+    apply."""
+    napply = int(opts["blasted_async_sweeps"].split(",")[1])
+    applies = 2 * iters
+    return {"bdia_lower_sweep": (napply - 2) * applies,
+            "bdia_upper_sweep": (napply - 2) * applies,
+            **dict.fromkeys(BLOCK_HEAD, applies)}
+
+
 def expect_launches(label: str, counts: dict, want: dict) -> None:
     """Each kernel of ``want`` launched as often as it says (an int, or
     None for "at least once"); every other kernel never."""
@@ -1371,19 +1544,19 @@ def block_main_path(B, b, t_host: float):
     rec, _ = run_main("block-main", B, b, t_host,
                       {"bs": B.bs, "nb": B.nbrows, "n": B.nrows,
                        "nnzb": B.nnzb}, ILU44_OPTS)
-    nbuild, napply = map(int, ILU44_OPTS["blasted_async_sweeps"].split(","))
+    nbuild = int(ILU44_OPTS["blasted_async_sweeps"].split(",")[0])
     # K6: nbuild − 1 Dinv-emitting sweeps and one U0-emitting sweep; the
-    # block inverse before the sweeps and for the apply's diagonal; K7:
-    # napply sweeps of each mode per apply, two applies per iteration
+    # block inverse before the sweeps and for the apply's diagonal; each
+    # triangle of an apply from zero: one K13 and napply − 2 K7, two
+    # applies per iteration
     factor = {"bfactor_dinv": nbuild - 1, "bfactor_u0": 1,
               "block_inverse": None}
     it = rec["iters"]
     expect_launches("block-main", rec["launches"],
                     {"bspmv": 2 * it + 1, **factor,
-                     "bdia_lower_sweep": 2 * napply * it,
-                     "bdia_upper_sweep": 2 * napply * it})
+                     **block_apply_counts(ILU44_OPTS, it)})
     # [block-mixed]: the factors stored in bfloat16, so the apply takes
-    # the twin's products (the dtype rule of soa_*_sweep): no K7
+    # the twin's products (the dtype rule of soa_*_sweep): no K7 or K13
     mrec, ctx = run_main("block-mixed", B, b, 0.0,
                          {"bs": B.bs, "host_system": "reused"},
                          dict(ILU44_OPTS, blasted_apply_dtype="bfloat16"))
@@ -1664,6 +1837,7 @@ def check_all_kernels(A, B) -> dict:
     check_block_kernels(BLOCK_CHECK_G, BLOCK_BS, torch.float64, 5,
                         timed_run=False)
     torch.cuda.empty_cache()
+    ex19_head()
     shapes.update(check_all_padded_kernels(A, B))
     return shapes
 
@@ -2550,7 +2724,6 @@ def newton_case(label: str, M, b, opts: dict, want_factor: dict) -> dict:
     relres = card_relres(D, bt, x2)
     block = getattr(D, "bs", 1) > 1
     spmv_name = "bspmv" if block else "dia_spmv"
-    napply = int(opts["blasted_async_sweeps"].split(",")[1])
     rec = {"fact_init": opts["blasted_async_fact_init_type"],
            "iters_before": info.iters, "iters_after": info2.iters,
            "relres_true_before": relres0, "relres_true_after": relres,
@@ -2569,11 +2742,10 @@ def newton_case(label: str, M, b, opts: dict, want_factor: dict) -> dict:
     if not refactored or fresh_equal is False:
         fail(f"{label}: the factor after the update is stale: {rec}")
     expect_launches(f"{label} factor", fac, want_factor)
-    k7 = 2 * napply * info2.iters
     expect_launches(f"{label} solve", sol,
                     {spmv_name: 2 * info2.iters + 1,
-                     **({"bdia_lower_sweep": k7, "bdia_upper_sweep": k7}
-                        if block else apply_counts(opts, info2.iters))})
+                     **(block_apply_counts if block else apply_counts)(
+                         opts, info2.iters)})
     del ctx
     return {k: fac[k] + sol[k] for k in fac}
 

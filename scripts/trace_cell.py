@@ -25,8 +25,12 @@ beside the program's ``krylov.iter`` spans, the host µs per kernel launch
 over the process (``ops/_cuda.py``'s ``launch_ns`` over its
 ``launches``), the share of the traced systems' DIA ILU(0) applies whose
 chains start with the zero-start sweep K12 (the counters
-``precond.zero_start`` over ``precond.ilu_apply``), the device's busy and
-idle seconds, and the idle split.
+``precond.zero_start`` over ``precond.ilu_apply``) and of their block-DIA
+ILU(0) applies whose chains start with the block head sweep K13
+(``precond.block_zero_start`` over ``precond.block_apply``), the device's
+busy and idle seconds, and the idle split.  It takes a cell of either
+route (the host CSR and ``try_dia_from_csr``, or the host BSR and
+``try_bdia_from_bsr``).
 It imports nothing of JAX.
 """
 
@@ -142,13 +146,16 @@ def main(argv=None) -> int:
                                    BENCH_DIR / "out" / "cache")
     torch.cuda.synchronize(device)
     setup["inputs"] = time.perf_counter() - t0
-    _timed(inputs, ("host_csr", "rhs", "bands"), setup,
+    _timed(inputs, [name for name in ("host_csr", "host_bsr", "rhs", "bands")
+                    if hasattr(inputs, name)], setup,
            lambda: torch.cuda.synchronize(device))
     t0 = time.perf_counter()
     route = cell.route()(inputs, cell.config, [device])
     route.sync()
     setup["route"] = time.perf_counter() - t0
-    setup["dia_from_csr"] = profiling.counters["setup.dia_from_csr_s"]
+    for name in ("dia_from_csr", "bdia_from_bsr"):
+        if f"setup.{name}_s" in profiling.counters:
+            setup[name] = profiling.counters[f"setup.{name}_s"]
     setup["precond_and_first_factor"] = profiling.counters["setup.precond_s"]
     t0 = time.perf_counter()
     for i in range(int(cell.mix["warmup_systems"])):
@@ -183,6 +190,7 @@ def main(argv=None) -> int:
             events = [e for e in json.load(f)["traceEvents"] if "dur" in e]
     records = profiling.records()
     applies = profiling.counters.get("precond.ilu_apply", 0)
+    block_applies = profiling.counters.get("precond.block_apply", 0)
     launches = sum(_cuda.launches.values())
     untraced_ms = sum(untraced) / len(untraced) * 1e3
     traced_ms = sum(traced) / len(traced) * 1e3
@@ -200,6 +208,9 @@ def main(argv=None) -> int:
            "zero_start_share": (profiling.counters.get("precond.zero_start",
                                                        0) / applies
                                 if applies else None),
+           "block_zero_start_share": (
+               profiling.counters.get("precond.block_zero_start", 0)
+               / block_applies if block_applies else None),
            **idle_split(events, {r.name for r in records})}
     print(json.dumps(out), flush=True)
     return 0

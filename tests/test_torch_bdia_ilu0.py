@@ -271,3 +271,136 @@ def test_solve_compressed_route_and_default_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             api.solve(B, b, opts)
+
+
+# ------------------------------------------- K13: the zero-start chain ----
+
+def _k7_chain_from_zero(p, r):
+    """The apply as it was before K13: each triangle's ``napplysweeps``
+    K7 sweeps from a zero iterate."""
+    from blasted_tpu_torch.ops.bdia import (
+        cols_of,
+        soa_unit_lower_sweep,
+        soa_upper_solve_sweep,
+        stack_cols,
+    )
+    from blasted_tpu_torch.ops.sweeps import run_sweeps
+
+    st, A = p.state, p.mat
+    bs, offsets = A.bs, A.offsets
+    lower = [d for d, o in enumerate(offsets) if o < 0]
+    upper = [d for d, o in enumerate(offsets) if o > 0]
+    z = st.scale * r if st.scale is not None else r
+    zc = cols_of(z)
+    zero = torch.zeros_like(zc)
+    yc = run_sweeps(p.napplysweeps,
+                    lambda y: soa_unit_lower_sweep(st.ilu, offsets, lower, zc,
+                                                   y, bs), zero)
+    out = stack_cols(run_sweeps(
+        p.napplysweeps,
+        lambda zz: soa_upper_solve_sweep(st.ilu, st.ilu_dinv, offsets, upper,
+                                         yc, zz, bs), zero))
+    return st.scale * out if st.scale is not None else out
+
+
+@pytest.mark.parametrize("scaling", [False, True])
+@pytest.mark.parametrize("nsw", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_folded_apply_is_the_k7_chain_from_zero(dtype, nsw, scaling):
+    """An apply from zero with two sweeps or more starts each chain with
+    K13 and equals the chain of K7 sweeps from zero bit for bit, up to the
+    sign of a zero (``+ 0.0`` clears it); counted once an apply."""
+    from blasted_tpu_torch.utils import profiling
+
+    rowptr, colind, vals = block_poisson_arrays(4, 3, seed=nsw)
+    B = BSRMatrix.from_arrays(rowptr, colind, vals.astype(dtype), 3)
+    p = BlockDiaILU0Preconditioner(bdia_from_bsr(B, "cpu"), nbuildsweeps=3,
+                                   napplysweeps=nsw, use_scaling=scaling)
+    p.compute()
+    r = torch.from_numpy(np.random.default_rng(nsw).standard_normal(
+        (p.mat.nbrows, 3)).astype(dtype))
+    profiling.reset()
+    try:
+        got = p.apply(r)
+        assert profiling.counters == {"precond.block_apply": 1,
+                                      "precond.block_zero_start": 1}
+    finally:
+        profiling.reset()
+    want = _k7_chain_from_zero(p, r)
+    assert got.dtype == want.dtype and torch.equal(got + 0.0, want + 0.0)
+
+
+BLOCK_ROUTES = {"zero": {}, "jacobi": {"blasted_async_apply_init_type":
+                                       "init_jacobi"},
+                "none": {"blasted_async_apply_init_type": "init_none"},
+                "sequential": {"blasted_async_sweeps": "3,-1"},
+                "one_sweep": {"blasted_async_sweeps": "3,1"},
+                "mixed_dtype": {"blasted_apply_dtype": "bfloat16"}}
+
+
+@pytest.mark.parametrize("route", sorted(BLOCK_ROUTES))
+def test_block_zero_start_engages_only_from_zero_with_two_sweeps(route):
+    """``precond.block_zero_start`` counts every apply of a block ILU(0)
+    solve from zero with two sweeps or more and the factor in the
+    vector's dtype; JACOBI, NONE, one sweep, SEQUENTIAL and a bfloat16
+    factor keep the K7 chain and leave it at 0."""
+    from blasted_tpu_torch.utils import profiling
+
+    opts = {"blasted_pc_type": "ilu0", "blasted_async_sweeps": "3,3",
+            "rtol": 1e-6, "maxiter": 200, **BLOCK_ROUTES[route]}
+    B, _, _, _ = _mats(nx=4, bs=2, seed=2)
+    profiling.reset()
+    try:
+        _, info, ctx = api.solve(B, np.ones(B.nrows), opts, device="cpu")
+        counters = dict(profiling.counters)
+    finally:
+        profiling.reset()
+    assert type(ctx.prec).__name__ == "BlockDiaILU0Preconditioner"
+    assert info.iters >= 1
+    assert counters["precond.block_apply"] == 2 * info.iters
+    assert counters.get("precond.block_zero_start", 0) \
+        == (2 * info.iters if route == "zero" else 0)
+
+
+@pytest.mark.parametrize("nsw", [2, 3, 4])
+def test_solve_runs_k13_and_k7_as_chip_smoke_counts(nsw, monkeypatch):
+    """A BiCGSTAB solve with block ILU(0) from zero calls K13's wrapper
+    once per triangle an apply and K7's ``nsw − 2`` times a triangle:
+    ``chip_smoke.py``'s ``block_apply_counts``, which the card's launches
+    are held to."""
+    from blasted_tpu_torch.ops import bdia, bstencil
+    from blasted_tpu_torch.precond import bdia_ilu0
+
+    calls = dict.fromkeys(("bdia_lower_sweep", "bdia_upper_sweep",
+                           "bdia_head_lower_sweep", "bdia_head_upper_sweep"),
+                          0)
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            name = key
+            if key == "bdia_head":
+                upper = len(args) > 4 and args[4] is not None
+                name = f"bdia_head_{'upper' if upper else 'lower'}_sweep"
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name in ("bdia_lower_sweep", "bdia_upper_sweep"):
+        monkeypatch.setattr(bdia, f"{name}_stencil",
+                            counted(name, getattr(bstencil,
+                                                  f"{name}_stencil")))
+    monkeypatch.setattr(bdia_ilu0, "bdia_head_sweep_stencil",
+                        counted("bdia_head",
+                                bstencil.bdia_head_sweep_stencil))
+    B, _, _, _ = _mats(nx=5, bs=4, seed=3)
+    b = B.to_scipy() @ np.random.default_rng(2).standard_normal(B.nrows)
+    _, info, _ = api.solve(B, b, {"blasted_pc_type": "ilu0",
+                                  "blasted_async_sweeps": f"4,{nsw}",
+                                  "rtol": 1e-8, "maxiter": 200},
+                           device="cpu")
+    assert info.converged
+    applies = 2 * info.iters
+    assert calls == {"bdia_lower_sweep": (nsw - 2) * applies,
+                     "bdia_upper_sweep": (nsw - 2) * applies,
+                     "bdia_head_lower_sweep": applies,
+                     "bdia_head_upper_sweep": applies}

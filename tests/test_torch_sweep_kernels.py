@@ -6,7 +6,8 @@ of the largest magnitude (the twins run JAX's operations in JAX's order;
 the bound leaves room only for the last bits of a different summation
 tree, which no case here uses); K12 (the zero-start sweep: K2's first two
 sweeps of an ILU(0) apply chain from zero in one launch), whose twin is
-K2's from the first sweep's known iterate; the wrappers' contracts; the
+K2's from the first sweep's known iterate, and K13, its block counterpart
+over K7; the wrappers' contracts; the
 pair table built once per preconditioner; and the slice end to end (the
 scalar and block ILU(0) preconditioners against JAX's, the scalar apply
 through K12).
@@ -225,6 +226,45 @@ def test_k12_twin_is_k2s_second_sweep_from_zero(band, mode, dtype):
     assert got.dtype == dtype and torch.equal(got + 0.0, two + 0.0)
 
 
+# ----------------------------------------------------------------- K13 ----
+
+# the 5-point block star of an 8 × 8 grid (ex19's band) and the 7-point
+# block band of a 4³ grid
+HEAD_BANDS = {"star5": (-8, -1, 0, 1, 8), "7pt": BANDS["7pt"]}
+
+
+def _k13_args(offsets=BANDS["7pt"], mode="upper", bs=2,
+              dtype=torch.float64, seed=1):
+    """K13's operands: a factor's (k, bs², N) blocks, the mode's block
+    diagonals, a right-hand side and, upper, an inverse diagonal."""
+    data, dinv, z, _ = (torch.from_numpy(a).to(dtype) for a in
+                        _block_operands(offsets, bs, seed))
+    return (data, offsets, _sel(offsets, mode, "band"), z,
+            dinv if mode == "upper" else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", range(1, 9))
+@pytest.mark.parametrize("mode", ["lower", "upper"])
+@pytest.mark.parametrize("band", sorted(HEAD_BANDS))
+def test_k13_twin_is_k7s_second_sweep_from_zero(band, mode, bs, dtype):
+    """K13's twin equals K7's twin run twice from a zero iterate, bit for
+    bit up to the sign of a zero, in either mode."""
+    data, offsets, sel, rhs, dinv = _k13_args(HEAD_BANDS[band], mode, bs,
+                                              dtype, seed=bs)
+    got = bstencil.bdia_head_sweep_ref(data, offsets, sel, rhs, dinv)
+    zero = torch.zeros_like(rhs)
+    if mode == "lower":
+        first = bstencil.bdia_lower_sweep_ref(data, offsets, sel, rhs, zero)
+        two = bstencil.bdia_lower_sweep_ref(data, offsets, sel, rhs, first)
+    else:
+        first = bstencil.bdia_upper_sweep_ref(data, dinv, offsets, sel, rhs,
+                                              zero)
+        two = bstencil.bdia_upper_sweep_ref(data, dinv, offsets, sel, rhs,
+                                            first)
+    assert got.dtype == dtype and torch.equal(got + 0.0, two + 0.0)
+
+
 # ------------------------------------------------------------ contracts ----
 
 def _k7_args(bs=2, k=7, dtype=torch.float64):
@@ -260,6 +300,11 @@ def _wrapper_and_twin(kernel):
         return (stencil.zero_start_sweep_stencil(offs, coeff, rhs, dinv),
                 stencil.zero_start_sweep_ref(offs, coeff, rhs, dinv),
                 tuple(t for t in (coeff, rhs, dinv) if t is not None))
+    if kernel.startswith("k13"):
+        data, offs, sel, rhs, dinv = _k13_args(mode=kernel[4:])
+        return (bstencil.bdia_head_sweep_stencil(data, offs, sel, rhs, dinv),
+                bstencil.bdia_head_sweep_ref(data, offs, sel, rhs, dinv),
+                tuple(t for t in (data, rhs, dinv) if t is not None))
     offsets, data, dinv, z, y, lower, upper = _k7_args()
     if kernel == "k7_lower":
         return (bstencil.bdia_lower_sweep_stencil(data, offsets, lower, z, y),
@@ -275,7 +320,8 @@ def _wrapper_and_twin(kernel):
             (data, dinv, y, z))
 
 
-KERNELS = ["k7_lower", "k7_upper", "k8", "k12_lower", "k12_upper"]
+KERNELS = ["k7_lower", "k7_upper", "k8", "k12_lower", "k12_upper",
+           "k13_lower", "k13_upper"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -361,6 +407,32 @@ def _raises_k12(case):
                                             rhs.bfloat16())
 
 
+def _raises_k13(case):
+    data, offsets, upper, y, dinv = _k13_args()
+    if case == "mixed_dtypes":
+        return bstencil.bdia_head_sweep_stencil(data, offsets, upper,
+                                                y.float(), dinv)
+    if case == "diagonals_over_128":
+        o, d, _, z1, _, lo, _ = _k7_args(k=129)
+        return bstencil.bdia_head_sweep_stencil(d, o, lo, z1)
+    if case == "bs_over_8":
+        return bstencil.bdia_head_sweep_stencil(
+            torch.zeros(7, 81, N, dtype=torch.float64), offsets, [0, 1],
+            torch.zeros(9, N, dtype=torch.float64))
+    if case == "non_contiguous":
+        yt = torch.zeros(N, 2, dtype=torch.float64).t()
+        return bstencil.bdia_head_sweep_stencil(data, offsets, upper, yt,
+                                                dinv)
+    if case == "wrong_shape":
+        return bstencil.bdia_head_sweep_stencil(data, offsets, upper, y,
+                                                dinv[:3])
+    assert case == "bad_index"
+    return bstencil.bdia_head_sweep_stencil(data, offsets, [0, 7], y)
+
+
+K13_RAISES = {"mixed_dtypes": TypeError, "diagonals_over_128": ValueError,
+              "bs_over_8": ValueError, "non_contiguous": ValueError,
+              "wrong_shape": ValueError, "bad_index": ValueError}
 K12_RAISES = {"mixed_dtypes": TypeError, "diagonals_over_128": ValueError,
               "non_contiguous": ValueError, "wrong_shape": ValueError,
               "bfloat16": TypeError}
@@ -388,6 +460,13 @@ def test_k8_wrapper_raises(case):
 def test_k12_wrapper_raises(case):
     with pytest.raises(K12_RAISES[case]):
         _raises_k12(case)
+
+
+@pytest.mark.parametrize("case", sorted(K13_RAISES))
+def test_k13_wrapper_raises(case):
+    """K13's wrapper raises where K7's does (``_raises_k7``)."""
+    with pytest.raises(K13_RAISES[case]):
+        _raises_k13(case)
 
 
 def test_mixed_dtype_factor_takes_the_twin():
