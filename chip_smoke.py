@@ -5,31 +5,28 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``blasted_tpu_torch/csrc`` (K1-K4, the
-plain factor sweep K8 and the zero-start apply sweep K12 of the scalar
-banded path; K5, K6, the block inverse, the apply sweep K7 and the block
-head sweep K13 of the point-block path; K9-K11 of the general
-padded path: the padded SpMV, the ILU(0) apply sweep in two modes and the
-factor sweep over the ILU pair lists) and checks each against its plain
-PyTorch twin on the card: K1-K4, K8 and K12 at the shapes of the scalar
-main path (the npts=162 band in float32; K8 in its tuple form, which
-[main] runs, and its stacked form, which the distributed factor runs; K12
-in both modes, bitwise, and bitwise equal to the two K2 sweeps from zero
-it replaces, up to the sign of a zero) and at npts=48 in float64; K5, both modes of K6, the block inverse and both
-modes of K7 and K13 at bs=4 on the g=128 block band in float32 (the block
-main path's shapes), at bs=5, g=96 in float32 and at bs=4, g=24 in
-float64 (K13 bitwise, and bitwise equal to K7's two launches from zero);
-``[ex19-head]`` K13 at the benchmark's ex19 shape (bs=4, float64, the
-5-point block star of a 1024² grid) the same way, timed beside K7, and an
-apply's two chains folded against K7's chains from zero;
-K9-K11, each bitwise, on the padded forms of the two main systems in
-float32 (the padded paths' shapes), of the 48³ Poisson matrix and the
-bs=4 g=24 block system in float64 and of a bs=5 g=48 block system.  At
-the main-path shapes it times each kernel, its twin and, where one PyTorch
-call computes the same function, that call (K7's and K10's lower modes:
-``torch.addmv`` on the sparse form of L; K9: ``torch.mv`` on the CUDA
-CSR/BSR matrix; none for K6, the upper modes, K8 and K11, the kernels line
-says why).  ``[bench]`` then runs every section of the port's
+It builds the CUDA kernels from ``blasted_tpu_torch/csrc`` (K1-K4, K8 and
+K12 of the scalar banded path; K5-K7, the block inverse and K13 of the
+point-block path; K9-K11 of the general padded path) and holds each
+against its plain PyTorch twin on the card through one table,
+``KERNELS``: one entry per launch name of ``ops/_cuda.py`` with the family
+of operands it runs on, its (kernel, twin) cases, its byte and operation
+model, its library yardstick (the one PyTorch call computing the same
+function, or why there is none), whether it must equal its twin to the bit
+(K9-K13) and, for K12 and K13, the two launches from zero it replaces
+(bitwise after ``+ 0.0``).  One loop (``check_family``) runs a family's
+entries on one operand set, and ``check_all_kernels`` runs it at the
+scalar main path's shapes (the npts=162 band in float32, timed; K3/K4
+timed at 288³) and at npts=48 in float64; at bs=4 on the g=128 block band
+in float32 (the block main path's shapes, timed), at bs=5, g=96 and at
+bs=4, g=24 in float64; ``[ex19-head]`` K7 and K13 at the benchmark's ex19
+shape (bs=4, float64, the 5-point block star of a 1024² grid), timed, and
+an apply's two chains folded against K7's chains from zero; K9-K11 on the
+padded forms of the two main systems in float32 (timed), of the 48³
+Poisson matrix and the bs=4 g=24 block system in float64 and of a bs=5
+g=48 block system.  A timed record carries the kernel's, its twin's and
+its yardstick's device times and its bound; the kernels line says why a
+kernel has no yardstick.  ``[bench]`` then runs every section of the port's
 roofline bench (``blasted_tpu_torch/bench/roofline.py``) cut in size
 (``BENCH_SMOKE``: scalar g=240, bs=4 at g=96, bs=5 at g=80, each past
 4× the L2, the padded CSR (K9) at its full g=160, the solve at npts=66;
@@ -173,17 +170,20 @@ with code 2.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -244,54 +244,6 @@ from blasted_tpu_torch.sparse import (
 from blasted_tpu_torch.sparse.bdia import shift_last
 from blasted_tpu_torch.sparse.dia import shift_read
 
-# the TPU kernel each one replaces: file:line of its pallas_call (the block
-# inverse, K7 and K8: the JAX functions XLA runs, with no pallas_call; K12:
-# K2's first two calls of an apply chain from zero; K13: the first two
-# steps of the block apply's fori_loop from zero)
-REPLACES = {
-    "dia_spmv": "blasted_tpu/ops/stencil.py:221",
-    "tri_sweep": "blasted_tpu/ops/stencil.py:295",
-    "zero_start_lower_sweep": "blasted_tpu/ops/stencil.py:295",
-    "zero_start_upper_sweep": "blasted_tpu/ops/stencil.py:295",
-    "factor_u0": "blasted_tpu/ops/stencil.py:383",
-    "factor_lower": "blasted_tpu/ops/stencil.py:436",
-    "bspmv": "blasted_tpu/ops/bstencil.py:242",
-    "bfactor_dinv": "blasted_tpu/ops/bstencil.py:448",
-    "bfactor_u0": "blasted_tpu/ops/bstencil.py:448",
-    "block_inverse": "blasted_tpu/ops/bstencil.py:284",
-    "bdia_lower_sweep": "blasted_tpu/ops/bdia.py:66",
-    "bdia_upper_sweep": "blasted_tpu/ops/bdia.py:73",
-    "bdia_head_lower_sweep": "blasted_tpu/precond/bdia_ilu0.py:455",
-    "bdia_head_upper_sweep": "blasted_tpu/precond/bdia_ilu0.py:461",
-    "plain_factor_sweep": "blasted_tpu/precond/dia_ilu0.py:75",
-    "padded_spmv": "blasted_tpu/ops/spmv.py:23",
-    "padded_lower_sweep": "blasted_tpu/ops/sweeps.py:86",
-    "padded_upper_sweep": "blasted_tpu/ops/sweeps.py:93",
-    "padded_factor_sweep": "blasted_tpu/precond/ilu0.py:304",
-}
-# why a kernel has no library yardstick (``library_ms`` null)
-NO_LIBRARY = {
-    "factor_u0": "no PyTorch call computes a compressed Chow-Patel sweep",
-    "factor_lower": "no PyTorch call computes a guarded shifted division",
-    "bfactor_dinv": "no PyTorch call computes a block Chow-Patel sweep",
-    "bfactor_u0": "no PyTorch call computes a block Chow-Patel sweep",
-    "bdia_upper_sweep": "dinv·(y − U z) is two products: torch.addmv "
-                        "computes only y − U z",
-    "zero_start_upper_sweep": "dinv·(y − U (y·dinv)) is three products: "
-                              "torch.addmv computes only y − U z",
-    "bdia_head_upper_sweep": "dinv·(y − U (dinv·y)) is three products: "
-                             "torch.addmv computes only y − U z",
-    "plain_factor_sweep": "no PyTorch call computes a Chow-Patel sweep "
-                          "(shifted products, a guarded division, a "
-                          "re-mask)",
-    "padded_upper_sweep": "dinv·(y − U z) is two products: torch.addmv "
-                          "computes only y − U z",
-    "padded_factor_sweep": "no PyTorch call computes a Chow-Patel sweep "
-                           "over ILU pair lists",
-}
-# the padded path's kernels (K9, K10 in its two modes, K11)
-PADDED = ("padded_spmv", "padded_lower_sweep", "padded_upper_sweep",
-          "padded_factor_sweep")
 # max |kernel − twin| / max |twin|: the kernels are built to round as their
 # twins do, so these bounds only allow for a different summation order
 TOL = bench_common.TWIN_RTOL
@@ -331,29 +283,6 @@ BLOCK_HEAD = ("bdia_head_lower_sweep", "bdia_head_upper_sweep")
 # [ex19-head]: ex19's block band (PETSc SNES ex19 at 1024², 4 dof, f64),
 # the 5-point block star of the benchmark's ex19 cell
 EX19_NX, EX19_BS = 1024, 4
-# ILU(0) 4,4 on the 160³ band: K1, K2 and K12 (each apply from zero); its
-# factor is plain (R4): K8 once per sweep
-ILU_KERNELS = {"dia_spmv": None, "tri_sweep": None,
-               **dict.fromkeys(ZERO_START), "plain_factor_sweep": 4}
-# [krylov-main]: (label, options, kernels the solve must launch)
-KRYLOV_CASES = [
-    ("gmres+ilu0", {"ksp_type": "gmres", "restart": 30,
-                    "blasted_pc_type": "ilu0",
-                    "blasted_async_sweeps": "4,4"}, ILU_KERNELS),
-    ("gcr+ilu0", {"ksp_type": "gcr", "restart": 30,
-                  "blasted_pc_type": "ilu0",
-                  "blasted_async_sweeps": "4,4"}, ILU_KERNELS),
-    ("cg+jacobi", {"ksp_type": "cg", "blasted_pc_type": "jacobi"},
-     {"dia_spmv": "cg"}),
-    ("bicgstab+sgs", {"ksp_type": "bicgstab", "blasted_pc_type": "sgs",
-                      "blasted_async_sweeps": "1,2"},
-     {"dia_spmv": "bicgstab"}),
-    ("bicgstab+gs", {"ksp_type": "bicgstab", "blasted_pc_type": "gs"},
-     {"dia_spmv": "bicgstab"}),
-    ("bicgstab+cscbgs", {"ksp_type": "bicgstab",
-                         "blasted_pc_type": "cscbgs"},
-     {"dia_spmv": "bicgstab"}),
-]
 AMG_OPTS = {"blasted_pc_type": "amg", "blasted_amg_group": 4,
             "blasted_amg_cycle": "v", "blasted_amg_sub_pc_type": "sgs"}
 CUT_NPTS = 66            # [level-sgs] and scalar [sai]: 64³ = 262,144
@@ -470,40 +399,78 @@ def band_operands(g: int, dtype, device, seed: int):
             device=device),
         "plan_stacked": stencil.PlainSweepPlan(
             offsets, pairs, 3, mask, prune=False, device=device),
+        "dtype": dtype, "shape": f"g={g} n={n} {str(dtype)[6:]}",
     }
 
 
-def block_operands(g: int, bs: int, dtype, device, seed: int):
-    """Operands of K5, K6 and the block inverse on the 7-point block band of
-    a g³ block grid (bench.py:398-418): entries 0.25·N(0,1) inside the
-    structural mask, 2k = 14 added to the diagonal of each diagonal block;
-    a few all-zero diagonal blocks (zero pivots, the guard) and a diagonal
-    mask with a few false rows (identity blocks) for the block inverse.
-    K6 reads the three pair lowers, their uppers pre-shifted by the pair
-    offset, and the inverse of the diagonal; K7 the band's lower and upper
+def block_band_operands(offsets, mask, bs: int, dtype, device, seed: int,
+                        diag: float, shape: str) -> dict:
+    """Operands of the block kernels on the block band of ``offsets`` with
+    the structural mask ``mask`` (k, nb) (bench.py:398-418): entries
+    0.25·N(0,1) inside the mask, ``diag`` added to the diagonal of each
+    diagonal block; a few all-zero diagonal blocks (zero pivots, the guard)
+    and a diagonal mask with a few false rows (identity blocks) for the
+    block inverse.  K6 reads the centre's fill pairs (``dia_pairs``): their
+    lowers, their uppers pre-shifted by the pair offset, and the inverse of
+    the diagonal; K7 and K13 the band's lower (``lo``) or upper (``up``)
     blocks, that inverse and two (bs, nb) column streams."""
-    nb, b2 = g ** 3, bs * bs
-    offsets, mask = band_mask(g, device)
+    k, nb, b2 = len(offsets), mask.shape[1], bs * bs
+    d0 = offsets.index(0)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
-    data = 0.25 * randn(7, b2, nb)
-    data[3, [i * bs + i for i in range(bs)]] += 14.0
+    data = 0.25 * randn(k, b2, nb)
+    data[d0, [i * bs + i for i in range(bs)]] += diag
     data = torch.where(mask[:, None], data, torch.zeros_like(data))
-    u0 = data[3].clone()
+    u0 = data[d0].clone()
     u0[:, ::997] = 0.0
     dmask = torch.arange(nb, device=device) % 1013 != 0
     return {
         "offsets": offsets, "mask": mask, "data": data,
         "x": randn(nb, bs), "u0": u0, "dmask": dmask,
         "z_cols": randn(bs, nb), "y_cols": randn(bs, nb),
-        "pair_offs": offsets[:3], "base0": data[3], "base_l": data[:3],
-        "ubs": torch.stack([shift_last(data[6 - p], offsets[p])
-                            for p in range(3)]),
-        "dinv": bstencil.block_inverse_ref(data[3]),
-    }
+        "lo": list(range(d0)), "up": list(range(d0 + 1, k)),
+        **block_factor_operands(offsets, data), "dtype": dtype,
+        "shape": shape}
+
+
+def block_factor_operands(offsets, base, mask=None) -> dict:
+    """K6's operands on the block band ``base`` (k, bs², nb): the centre's
+    fill pairs (``dia_pairs``), their lowers' base values and their
+    uppers' pre-shifted by the pair offset, and the inverse of the
+    diagonal (under ``mask``'s)."""
+    d0 = offsets.index(0)
+    pairs = dia_pairs(offsets)[d0]
+    return {"pair_offs": tuple(o1 for _, _, o1 in pairs), "base0": base[d0],
+            "base_l": torch.stack([base[dl] for dl, _, _ in pairs]),
+            "ubs": torch.stack([shift_last(base[du], o1)
+                                for _, du, o1 in pairs]),
+            "dinv": bstencil.block_inverse_ref(
+                base[d0], None if mask is None else mask[d0])}
+
+
+def block_operands(g: int, bs: int, dtype, device, seed: int) -> dict:
+    """The block kernels' operands on the 7-point block band of a g³ block
+    grid, 2k = 14 added to the diagonal."""
+    offsets, mask = band_mask(g, device)
+    return block_band_operands(
+        offsets, mask, bs, dtype, device, seed, 14.0,
+        f"bs={bs} g={g} nb={g ** 3} {str(dtype)[6:]}")
+
+
+def star_operands(nx: int, bs: int, dtype, device, seed: int) -> dict:
+    """The block kernels' operands on ex19's 5-point block star over an
+    nx² grid (offsets −nx, −1, 0, 1, nx), 10 added to the diagonal."""
+    nb = nx * nx
+    r = torch.arange(nb, device=device)
+    i0, j0 = r % nx, r // nx
+    mask = torch.stack([j0 > 0, i0 > 0, torch.ones_like(i0, dtype=bool),
+                        i0 < nx - 1, j0 < nx - 1])
+    return block_band_operands(
+        (-nx, -1, 0, 1, nx), mask, bs, dtype, device, seed, 10.0,
+        f"ex19 bs={bs} nx={nx} nb={nb} {str(dtype)[6:]}")
 
 
 def csr_of_band(offsets, data, mask, lower_only=False):
@@ -533,102 +500,6 @@ def bsr_of_band(offsets, data, mask, lower_only=False):
     cols = rows + torch.tensor(offsets, device=data.device)[sel][ds]
     vals = data[sel][ds, :, rows].reshape(-1, bs, bs)
     return torch.sparse_bsr_tensor(crow, cols, vals, size=(nb * bs,) * 2)
-
-
-def kernel_cases(op):
-    """(name, kernel call, twin call) for each scalar kernel; K2 is checked
-    as the unit-lower and the upper sweep, and timed on the upper sweep;
-    K12 in each mode."""
-    offs, data = op["offsets"], op["data"]
-    lo, up = offs[:3], offs[4:]
-    return {
-        "dia_spmv": [(lambda: stencil.dia_spmv_stencil(offs, data, op["x"]),
-                      lambda: stencil.dia_spmv_ref(offs, data, op["x"]))],
-        "tri_sweep": [
-            (lambda: stencil.tri_sweep_stencil(lo, data[:3], op["rhs"], op["y"]),
-             lambda: stencil.tri_sweep_ref(lo, data[:3], op["rhs"], op["y"])),
-            (lambda: stencil.tri_sweep_stencil(up, data[4:], op["rhs"], op["y"],
-                                               op["dinv"]),
-             lambda: stencil.tri_sweep_ref(up, data[4:], op["rhs"], op["y"],
-                                           op["dinv"])),
-        ],
-        "zero_start_lower_sweep": [
-            (lambda: stencil.zero_start_sweep_stencil(lo, data[:3],
-                                                      op["rhs"]),
-             lambda: stencil.zero_start_sweep_ref(lo, data[:3], op["rhs"]))],
-        "zero_start_upper_sweep": [
-            (lambda: stencil.zero_start_sweep_stencil(up, data[4:],
-                                                      op["rhs"], op["dinv"]),
-             lambda: stencil.zero_start_sweep_ref(up, data[4:], op["rhs"],
-                                                  op["dinv"]))],
-        "factor_u0": [(
-            lambda: stencil.factor_u0_stencil(op["lower_offs"], data[3],
-                                              op["base_l"], op["ubs"], op["u0"]),
-            lambda: stencil.factor_u0_ref(op["lower_offs"], data[3],
-                                          op["base_l"], op["ubs"], op["u0"]))],
-        "factor_lower": [(
-            lambda: stencil.factor_lower_stencil(op["lower_offs"], op["base_l"],
-                                                 op["u0"]),
-            lambda: stencil.factor_lower_ref(op["lower_offs"], op["base_l"],
-                                             op["u0"]))],
-        # K8 in the distributed factor's stacked form, then (timed) in the
-        # tuple form [main] runs
-        "plain_factor_sweep": [
-            (lambda p=op[plan]: stencil.plain_factor_sweep_stencil(
-                p, data, op["ilu"]),
-             lambda p=op[plan]: stencil.plain_factor_sweep_ref(
-                 p, data, op["ilu"]))
-            for plan in ("plan_stacked", "plan_tuple")],
-    }
-
-
-def block_kernel_cases(op):
-    """(name, kernel call, twin call) for K5, K6 in each mode, the block
-    inverse, and K7 and K13 in each mode."""
-    offs, data, po = op["offsets"], op["data"], op["pair_offs"]
-    fac = (po, op["base0"], op["base_l"], op["ubs"], op["dinv"])
-    lo, up, z, y = [0, 1, 2], [4, 5, 6], op["z_cols"], op["y_cols"]
-    return {
-        "bspmv": [(lambda: bstencil.bdia_spmv_stencil(offs, data, op["x"]),
-                   lambda: bstencil.bdia_spmv_ref(offs, data, op["x"]))],
-        "bfactor_dinv": [(lambda: bstencil.bdia_factor_stencil(*fac, True),
-                          lambda: bstencil.bdia_factor_ref(*fac, True))],
-        "bfactor_u0": [(lambda: bstencil.bdia_factor_stencil(*fac, False),
-                        lambda: bstencil.bdia_factor_ref(*fac, False))],
-        # checked with zero pivots and identity rows, timed on the
-        # nonsingular diagonal under the main path's full diagonal mask
-        "block_inverse": [
-            (lambda: bstencil.bdia_block_inverse(op["u0"], op["dmask"]),
-             lambda: bstencil.block_inverse_ref(op["u0"], op["dmask"])),
-            (lambda: bstencil.bdia_block_inverse(op["base0"], op["mask"][3]),
-             lambda: bstencil.block_inverse_ref(op["base0"], op["mask"][3]))],
-        # K7 (timed on the last case): the lower mode also over no
-        # diagonal (z − 0), the upper mode also with y and z one tensor, as
-        # the bench's chained pair calls it
-        "bdia_lower_sweep": [
-            (lambda: bstencil.bdia_lower_sweep_stencil(data, offs, [], z, y),
-             lambda: bstencil.bdia_lower_sweep_ref(data, offs, [], z, y)),
-            (lambda: bstencil.bdia_lower_sweep_stencil(data, offs, lo, z, y),
-             lambda: bstencil.bdia_lower_sweep_ref(data, offs, lo, z, y))],
-        "bdia_upper_sweep": [
-            (lambda: bstencil.bdia_upper_sweep_stencil(data, op["dinv"], offs,
-                                                       up, y, y),
-             lambda: bstencil.bdia_upper_sweep_ref(data, op["dinv"], offs, up,
-                                                   y, y)),
-            (lambda: bstencil.bdia_upper_sweep_stencil(data, op["dinv"], offs,
-                                                       up, y, z),
-             lambda: bstencil.bdia_upper_sweep_ref(data, op["dinv"], offs, up,
-                                                   y, z))],
-        # K13 in each mode on the same blocks, from z
-        "bdia_head_lower_sweep": [
-            (lambda: bstencil.bdia_head_sweep_stencil(data, offs, lo, z),
-             lambda: bstencil.bdia_head_sweep_ref(data, offs, lo, z))],
-        "bdia_head_upper_sweep": [
-            (lambda: bstencil.bdia_head_sweep_stencil(data, offs, up, z,
-                                                      op["dinv"]),
-             lambda: bstencil.bdia_head_sweep_ref(data, offs, up, z,
-                                                  op["dinv"]))],
-    }
 
 
 def cuda_ms(fn) -> tuple[float, float]:
@@ -677,7 +548,8 @@ def compare(name: str, label: str, cases, dtype) -> dict:
     err = rel = 0.0
     for kernel, twin in cases:
         got, want = kernel(), twin()
-        torch.cuda.synchronize(got.device)
+        if got.is_cuda:
+            torch.cuda.synchronize(got.device)
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
             fail(f"{name}: shape {tuple(got.shape)} or non-finite values")
         e = float((got - want).abs().max())
@@ -688,359 +560,89 @@ def compare(name: str, label: str, cases, dtype) -> dict:
     return {"max_abs_err": err, "rel_err": rel}
 
 
-def timed(rec: dict, name: str, kernel, twin, nbytes: float, flops: float,
-          dtype, library=None) -> None:
+def timed(rec: dict, kernel, twin, nbytes: float, flops: float, dtype,
+          library=None, reason: str | None = None) -> None:
     """Add the kernel's, the twin's and the library call's device times and
-    the kernel's bound to ``rec`` (with the reason where ``name`` has no
+    the kernel's bound to ``rec`` (with ``reason`` where there is no
     library call)."""
     rec["ms"], rec["host_ms"] = cuda_ms(kernel)
     rec["plain_ms"], rec["plain_host_ms"] = cuda_ms(twin)
     rec["library_ms"] = None if library is None else cuda_ms(library)[0]
-    if library is None and name in NO_LIBRARY:
-        rec["library_of"] = f"none: {NO_LIBRARY[name]}"
+    if reason is not None:
+        rec["library_of"] = f"none: {reason}"
     rec.update(bound(nbytes, flops, dtype))
     rec["gbps"] = nbytes / 1e9 / (rec["ms"] / 1e3)
     rec["hbm_share"] = rec["gbps"] / HBM_GBPS
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
 
 
-def scalar_work(name: str, n: int, isz: int) -> tuple:
-    """(bytes, operations) of one timed call of a scalar kernel: the least
-    traffic in (n,) streams — K1 7 diagonals + x + y; K2's upper sweep 3
-    diagonals + rhs + dinv + y + out; K3 base0 + 3 lowers + 3 pre-shifted
-    uppers + u0 + out; K4 3 lowers + u0 + 3 outputs; K8's tuple form the
-    base of the 3 lowers and the diagonal, the 7 rows of the iterate and
-    the 7 rows of its fresh output (the 3 pair-free uppers copied through,
-    as the twin's stack writes them); K12's lower mode 3 diagonals + rhs +
-    out, its upper mode 3 diagonals + rhs + dinv + out — and its
-    operations per row (K8: the diagonal's 3 pair products and
-    subtractions, the 3 lowers' divisions; K12's upper mode also the 3
-    neighbours' rhs·dinv)."""
-    streams, flops = {"dia_spmv": (9, 2 * 7), "tri_sweep": (7, 2 * 3 + 1),
-                      "zero_start_lower_sweep": (5, 2 * 3),
-                      "zero_start_upper_sweep": (6, 3 + 2 * 3 + 1),
-                      "factor_u0": (9, 3 * 3), "factor_lower": (7, 3),
-                      "plain_factor_sweep": (18, 2 * 3 + 3)}[name]
-    return streams * n * isz, flops * n
-
-
-def block_work(name: str, nb: int, bs: int, npair: int, isz: int,
-               nsel: int = 3) -> tuple:
-    """(bytes, operations) of one timed call of K5, K6, the inverse, K7 or
-    K13 (K7 and K13 over ``nsel`` blocks a mode)."""
-    b2 = bs * bs
-    contraction = npair * (2 * b2 * (2 * bs - 1) + b2)
-    sweep = (nsel * b2 + 3 * bs) * nb * isz, (2 * nsel * b2 + bs) * nb
-    dinv_mul = (2 * b2 - bs) * nb
-    return {
-        # K13: K7's blocks, the right-hand side and the output (no
-        # iterate); the upper mode also the inverse diagonal, which it
-        # multiplies by once for the output and once for each neighbour
-        "bdia_head_lower_sweep": (sweep[0] - bs * nb * isz, sweep[1]),
-        "bdia_head_upper_sweep": (sweep[0] + (b2 - bs) * nb * isz,
-                                  sweep[1] + (1 + nsel) * dinv_mul),
-        # K7 on the 7-point band's 3 lower (3 upper) blocks: the blocks,
-        # the two column streams read and the one written; the upper mode
-        # also reads the inverse diagonal and multiplies by it
-        "bdia_lower_sweep": sweep,
-        "bdia_upper_sweep": (sweep[0] + b2 * nb * isz, sweep[1] + dinv_mul),
-        "bspmv": ((7 * b2 + 2 * bs) * nb * isz, 2 * 7 * b2 * nb),
-        "bfactor_dinv": ((b2 * (1 + 2 * npair) + 2 * b2) * nb * isz,
-                         (contraction + gj_flops(bs)) * nb),
-        "bfactor_u0": ((b2 * (1 + 2 * npair) + 2 * b2) * nb * isz,
-                       contraction * nb),
-        "block_inverse": (2 * b2 * nb * isz + nb, gj_flops(bs) * nb),
-    }[name]
-
-
-def scalar_library(name: str, op):
-    """The one PyTorch call computing K1's function (``torch.mv`` on the
-    CUDA CSR band) or K12's lower mode's (``torch.addmv``, rhs − L·rhs),
-    else None; K2's is timed by ``lower_timed``."""
-    if name == "zero_start_lower_sweep":
-        low = csr_of_band(op["offsets"], op["data"], op["mask"],
-                          lower_only=True)
-        return lambda: torch.addmv(op["rhs"], low, op["rhs"], alpha=-1)
-    if name != "dia_spmv":
-        return None
+def band_mv(op):
+    """One PyTorch call computing K1's function: ``torch.mv`` on the CUDA
+    CSR form of the band."""
     csr = csr_of_band(op["offsets"], op["data"], op["mask"])
     return lambda: torch.mv(csr, op["x"])
 
 
-def lower_timed(rec: dict, op, lower_kernel, n: int, dtype) -> None:
-    """No single library call computes K2's upper sweep; one computes the
-    unit-lower sweep rhs − L·y (3 diagonals + rhs + y + out), timed beside
-    that sweep of the kernel."""
-    low = csr_of_band(op["offsets"], op["data"], op["mask"], lower_only=True)
-    rec["lower_ms"] = cuda_ms(lower_kernel)[0]
-    rec["lower_bound_ms"] = bound(6 * n * dtype.itemsize, 2 * 3 * n,
-                                  dtype)["bound_ms"]
-    rec["library_ms"] = cuda_ms(lambda: torch.addmv(
-        op["rhs"], low, op["y"], alpha=-1))[0]
-    rec["library_of"] = "unit-lower sweep (lower_ms)"
+def band_lower_addmv(y_key: str):
+    """One PyTorch call computing the unit-lower sweep ``rhs − L·y`` from
+    ``op[y_key]``: ``torch.addmv`` with the CUDA CSR form of the band's
+    strictly lower part (K2's lower mode from ``y``, K12's from ``rhs``)."""
+    def make(op):
+        low = csr_of_band(op["offsets"], op["data"], op["mask"],
+                          lower_only=True)
+        return lambda: torch.addmv(op["rhs"], low, op[y_key], alpha=-1)
+    return make
 
 
-def block_library_of(name: str, op):
-    """The one PyTorch call computing K5's, the inverse's or K7's lower
-    mode's function, else None."""
-    make = {"bspmv": block_library, "block_inverse": inverse_library,
-            "bdia_lower_sweep": lower_block_library,
-            "bdia_head_lower_sweep": lambda o: lower_block_library(
-                o, "z_cols")}.get(name)
-    return make and make(op)
-
-
-def check_kernels(g: int, dtype, seed: int, timed_names=()) -> dict:
-    """Each scalar kernel against its twin on the card, the kernels named
-    in ``timed_names`` also timed; returns per-kernel {max_abs_err, rel_err[,
-    times and bound]}."""
-    op = band_operands(g, dtype, "cuda", seed)
-    n, isz = g ** 3, dtype.itemsize
-    out = {}
-    for name, cases in kernel_cases(op).items():
-        rec = compare(name, f"g={g} {dtype}", cases, dtype)
-        rec["shape"] = f"g={g} n={n} {str(dtype)[6:]}"
-        if name in ZERO_START and rec["max_abs_err"] != 0.0:
-            fail(f"{name} g={g} {dtype}: not bitwise equal to its twin "
-                 f"({rec})")
-        if name in timed_names:
-            kernel, twin = cases[-1]
-            timed(rec, name, kernel, twin, *scalar_work(name, n, isz), dtype,
-                  scalar_library(name, op))
-            if name == "tri_sweep":
-                lower_timed(rec, op, cases[0][0], n, dtype)
-        out[name] = rec
-        print(f"[kernel] {name} g={g} n={n} {str(dtype)[6:]}: "
-              + " ".join(f"{k}={v}" for k, v in rec.items()), flush=True)
-    lo, up = op["offsets"][:3], op["offsets"][4:]
-    zero_start_is_k2_from_zero(f"g={g} {str(dtype)[6:]}", lo, op["data"][:3],
-                               up, op["data"][4:], op["dinv"], op["rhs"])
-    return out
-
-
-def zero_start_is_k2_from_zero(label: str, lo, low, up, upp, dinv,
-                               rhs) -> None:
-    """K12 in each mode against its twin, bitwise, and against the two K2
-    launches from a zero iterate that it replaces, bitwise after ``+ 0.0``
-    (which clears the sign of a zero)."""
-    zero = torch.zeros_like(rhs)
-    for mode, offs, coeff, di in (("lower", lo, low, None),
-                                  ("upper", up, upp, dinv)):
-        got = stencil.zero_start_sweep_stencil(offs, coeff, rhs, di)
-        twin = stencil.zero_start_sweep_ref(offs, coeff, rhs, di)
-        two = stencil.tri_sweep_stencil(offs, coeff, rhs,
-                                        stencil.tri_sweep_stencil(
-                                            offs, coeff, rhs, zero, di), di)
-        torch.cuda.synchronize()
-        if not torch.equal(got, twin) or \
-                not torch.equal(got + 0.0, two + 0.0):
-            fail(f"{label}: K12 {mode} off its twin by "
-                 f"{float((got - twin).abs().max())} or off K2's two "
-                 f"sweeps from zero by {float((got - two).abs().max())}")
-    print(f"[kernel] K12 {label}: both modes bitwise equal to their twins "
-          "and to K2's two sweeps from zero", flush=True)
-
-
-def check_block_kernels(g: int, bs: int, dtype, seed: int,
-                        timed_run: bool) -> dict:
-    """K5, K6 in each mode, the block inverse, and K7 and K13 in each mode
-    against their twins on the card (K13 bitwise, and bitwise equal to
-    K7's two launches from zero); returns per-kernel {max_abs_err,
-    rel_err[, times and bound]}."""
-    op = block_operands(g, bs, dtype, "cuda", seed)
-    nb, isz = g ** 3, dtype.itemsize
-    npair = len(op["pair_offs"])
-    out = {}
-    for name, cases in block_kernel_cases(op).items():
-        rec = compare(name, f"bs={bs} g={g} {dtype}", cases, dtype)
-        rec["shape"] = f"bs={bs} g={g} nb={nb} {str(dtype)[6:]}"
-        if name in BLOCK_HEAD and rec["max_abs_err"] != 0.0:
-            fail(f"{name} bs={bs} g={g} {dtype}: not bitwise equal to its "
-                 f"twin ({rec})")
-        if timed_run:
-            kernel, twin = cases[-1]
-            timed(rec, name, kernel, twin,
-                  *block_work(name, nb, bs, npair, isz), dtype,
-                  block_library_of(name, op))
-        out[name] = rec
-        print(f"[kernel] {name} bs={bs} g={g} nb={nb} {str(dtype)[6:]}: "
-              + " ".join(f"{k}={v}" for k, v in rec.items()), flush=True)
-    head_is_k7_from_zero(f"bs={bs} g={g} {str(dtype)[6:]}", op["data"],
-                         op["offsets"], [0, 1, 2], [4, 5, 6], op["dinv"],
-                         op["z_cols"])
-    return out
-
-
-def head_is_k7_from_zero(label: str, data, offsets, lo, up, dinv,
-                         rhs) -> None:
-    """K13 in each mode against its twin, bitwise, and against the two K7
-    launches from a zero iterate that it replaces, bitwise after ``+ 0.0``
-    (which clears the sign of a zero)."""
-    zero = torch.zeros_like(rhs)
-    for mode, sel, di in (("lower", lo, None), ("upper", up, dinv)):
-        got = bstencil.bdia_head_sweep_stencil(data, offsets, sel, rhs, di)
-        twin = bstencil.bdia_head_sweep_ref(data, offsets, sel, rhs, di)
-        if di is None:
-            two = bstencil.bdia_lower_sweep_stencil(
-                data, offsets, sel, rhs, bstencil.bdia_lower_sweep_stencil(
-                    data, offsets, sel, rhs, zero))
-        else:
-            two = bstencil.bdia_upper_sweep_stencil(
-                data, di, offsets, sel, rhs, bstencil.bdia_upper_sweep_stencil(
-                    data, di, offsets, sel, rhs, zero))
-        torch.cuda.synchronize()
-        if not torch.equal(got, twin) or \
-                not torch.equal(got + 0.0, two + 0.0):
-            fail(f"{label}: K13 {mode} off its twin by "
-                 f"{float((got - twin).abs().max())} or off K7's two "
-                 f"sweeps from zero by {float((got - two).abs().max())}")
-    print(f"[kernel] K13 {label}: both modes bitwise equal to their twins "
-          "and to K7's two sweeps from zero", flush=True)
-
-
-def star_operands(nx: int, bs: int, dtype, device, seed: int) -> dict:
-    """K7's and K13's operands on ex19's 5-point block star over an nx²
-    grid (offsets −nx, −1, 0, 1, nx): entries 0.25·N(0,1) inside the
-    structural mask, 10 added to the diagonal of each diagonal block, the
-    inverse of the diagonal blocks and a (bs, nb) right-hand side."""
-    nb, b2 = nx * nx, bs * bs
-    offsets = (-nx, -1, 0, 1, nx)
-    r = torch.arange(nb, device=device)
-    i0, j0 = r % nx, r // nx
-    mask = torch.stack([j0 > 0, i0 > 0, torch.ones_like(i0, dtype=bool),
-                        i0 < nx - 1, j0 < nx - 1])
-    gen = torch.Generator(device=device).manual_seed(seed)
-    data = 0.25 * torch.randn((5, b2, nb), generator=gen, dtype=dtype,
-                              device=device)
-    data[2, [i * bs + i for i in range(bs)]] += 10.0
-    data = torch.where(mask[:, None], data, torch.zeros_like(data))
-    return {"offsets": offsets, "data": data,
-            "dinv": bstencil.block_inverse_ref(data[2]),
-            "rhs": torch.randn((bs, nb), generator=gen, dtype=dtype,
-                               device=device)}
-
-
-def ex19_head() -> dict:
-    """[ex19-head]: K13 at the shape of the benchmark's ex19 cell (bs = 4,
-    f64, nb = 1,048,576, the 5-point block star) held bitwise to its twin
-    and to K7's two launches from zero, then timed in each mode beside K7,
-    and one triangle pair of an apply with four sweeps a triangle timed
-    both ways: K13 + 2 K7 a triangle against a fill + 4 K7."""
-    dtype = torch.float64
-    op = star_operands(EX19_NX, EX19_BS, dtype, "cuda", seed=19)
-    offs, data, dinv, rhs = op["offsets"], op["data"], op["dinv"], op["rhs"]
-    nb, isz = EX19_NX ** 2, dtype.itemsize
-    lo, up = [0, 1], [3, 4]
-    head_is_k7_from_zero("[ex19-head]", data, offs, lo, up, dinv, rhs)
-    y1 = bstencil.bdia_head_sweep_stencil(data, offs, lo, rhs)
-
-    def chain(head: bool):
-        rest = 2 if head else 4
-
-        def run():
-            zero = None if head else torch.zeros_like(rhs)
-            y = bstencil.bdia_head_sweep_stencil(data, offs, lo, rhs) \
-                if head else zero
-            for _ in range(rest):
-                y = bstencil.bdia_lower_sweep_stencil(data, offs, lo, rhs, y)
-            z = bstencil.bdia_head_sweep_stencil(data, offs, up, y, dinv) \
-                if head else zero
-            for _ in range(rest):
-                z = bstencil.bdia_upper_sweep_stencil(data, dinv, offs, up, y,
-                                                      z)
-            return z
-        return run
-
-    got, want = chain(True)(), chain(False)()
-    torch.cuda.synchronize()
-    if not torch.equal(got + 0.0, want + 0.0):
-        fail(f"[ex19-head]: the folded chain differs from K7's chain from "
-             f"zero by {float((got - want).abs().max())}")
-    calls = {
-        "bdia_head_lower_sweep": (
-            lambda: bstencil.bdia_head_sweep_stencil(data, offs, lo, rhs),
-            lambda: bstencil.bdia_head_sweep_ref(data, offs, lo, rhs)),
-        "bdia_head_upper_sweep": (
-            lambda: bstencil.bdia_head_sweep_stencil(data, offs, up, y1,
-                                                     dinv),
-            lambda: bstencil.bdia_head_sweep_ref(data, offs, up, y1, dinv)),
-        "bdia_lower_sweep": (
-            lambda: bstencil.bdia_lower_sweep_stencil(data, offs, lo, rhs,
-                                                      y1),
-            lambda: bstencil.bdia_lower_sweep_ref(data, offs, lo, rhs, y1)),
-        "bdia_upper_sweep": (
-            lambda: bstencil.bdia_upper_sweep_stencil(data, dinv, offs, up,
-                                                      y1, rhs),
-            lambda: bstencil.bdia_upper_sweep_ref(data, dinv, offs, up, y1,
-                                                  rhs)),
-    }
-    out = {}
-    for name, (kernel, twin) in calls.items():
-        rec = {"shape": f"ex19 bs={EX19_BS} nx={EX19_NX} nb={nb} float64"}
-        timed(rec, name, kernel, twin, *block_work(name, nb, EX19_BS, 2, isz,
-                                                   nsel=2), dtype)
-        out[name] = rec
-        print(f"[ex19-head] {name}: " + json.dumps(rec), flush=True)
-    rec = {"apply_bitwise_k7_chain": True,
-           "apply_pair_ms_folded": cuda_ms(chain(True))[0],
-           "apply_pair_ms_k7_chain": cuda_ms(chain(False))[0]}
-    print("[ex19-head] " + json.dumps(rec), flush=True)
-    del op
-    torch.cuda.empty_cache()
-    return out
+def sparse_yardstick(name: str, A, call, want, what: str,
+                     hold: bool = True):
+    """``call(A)``, a library yardstick of ``name`` on the CUDA sparse
+    tensor ``A``, or on its CSR form where this torch refuses a BSR tensor
+    there (said on a line of its own); its relative difference to the
+    twin's ``want`` (in the flat order of ``call``'s result) printed and,
+    with ``hold``, held to 1e-4."""
+    form = "csr" if A.layout == torch.sparse_csr else "bsr"
+    try:
+        got = call(A)
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"[library] {what} on a CUDA BSR tensor: {exc}; timing the "
+              "CSR form", flush=True)
+        A, form = A.to_sparse_csr(), "csr"
+        got = call(A)
+    want = want.reshape(-1)
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"[library] {name} yardstick: {what} on a CUDA {form} tensor, "
+          f"relative difference to the twin {rel}", flush=True)
+    if hold and rel > 1e-4:
+        fail(f"{what} differs from {name}'s twin by {rel}")
+    return lambda: call(A)
 
 
 def block_library(op):
-    """One PyTorch call computing K5's function: the CUDA BSR tensor of the
-    same matrix times the flat vector, or, where this torch refuses BSR
-    times a vector on CUDA, its CSR form (said on a line of its own)."""
-    A = bsr_of_band(op["offsets"], op["data"], op["mask"])
+    """One PyTorch call computing K5's function: ``torch.mv`` with the
+    CUDA BSR tensor of the same matrix on the flat vector."""
     xf = op["x"].reshape(-1)
-    want = bstencil.bdia_spmv_ref(op["offsets"], op["data"], op["x"])
-    try:
-        y = torch.mv(A, xf)
-        form = "bsr"
-    except (RuntimeError, NotImplementedError) as exc:
-        print(f"[library] torch.mv on a CUDA BSR tensor: {exc}; timing the "
-              "CSR form", flush=True)
-        A = A.to_sparse_csr()
-        y = torch.mv(A, xf)
-        form = "csr"
-    rel = float((y.reshape(want.shape) - want).abs().max()
-                / want.abs().max())
-    print(f"[library] bspmv yardstick: torch.mv on a CUDA {form} tensor, "
-          f"relative difference to the twin {rel}", flush=True)
-    return lambda: torch.mv(A, xf)
+    return sparse_yardstick(
+        "bspmv", bsr_of_band(op["offsets"], op["data"], op["mask"]),
+        lambda A: torch.mv(A, xf),
+        bstencil.bdia_spmv_ref(op["offsets"], op["data"], op["x"]),
+        "torch.mv", hold=False)
 
 
 def lower_block_library(op, y_key: str = "y_cols"):
     """One PyTorch call computing K7's lower mode, ``z − L y``:
     ``torch.addmv`` with the CUDA BSR tensor of the band's strictly lower
-    blocks on the flat (nb·bs,) forms of z and y, or, where this torch
-    refuses BSR there, its CSR form (said on a line of its own).  With
-    ``y_key`` "z_cols" it computes K13's lower mode, ``z − L z``."""
-    L = bsr_of_band(op["offsets"], op["data"], op["mask"], lower_only=True)
+    blocks on the flat (nb·bs,) forms of z and y.  With ``y_key``
+    "z_cols" it computes K13's lower mode, ``z − L z``."""
     zf = op["z_cols"].t().contiguous().reshape(-1)
     yf = op[y_key].t().contiguous().reshape(-1)
-    want = bstencil.bdia_lower_sweep_ref(op["data"], op["offsets"], [0, 1, 2],
-                                         op["z_cols"], op[y_key])
-    try:
-        got = torch.addmv(zf, L, yf, alpha=-1)
-        form = "bsr"
-    except (RuntimeError, NotImplementedError) as exc:
-        print(f"[library] torch.addmv on a CUDA BSR tensor: {exc}; timing "
-              "the CSR form", flush=True)
-        L = L.to_sparse_csr()
-        got = torch.addmv(zf, L, yf, alpha=-1)
-        form = "csr"
-    rel = float((got.reshape(-1, want.shape[0]).t() - want).abs().max()
-                / want.abs().max())
-    print(f"[library] bdia_lower_sweep yardstick: torch.addmv on a CUDA "
-          f"{form} tensor of L, relative difference to the twin {rel}",
-          flush=True)
-    if rel > 1e-4:
-        fail(f"torch.addmv differs from K7's lower twin by {rel}")
-    return lambda: torch.addmv(zf, L, yf, alpha=-1)
+    return sparse_yardstick(
+        "bdia_lower_sweep", bsr_of_band(op["offsets"], op["data"],
+                                        op["mask"], lower_only=True),
+        lambda L: torch.addmv(zf, L, yf, alpha=-1),
+        bstencil.bdia_lower_sweep_ref(op["data"], op["offsets"], op["lo"],
+                                      op["z_cols"], op[y_key]).t(),
+        "torch.addmv")
 
 
 def inverse_library(op):
@@ -1067,18 +669,18 @@ def inverse_library(op):
 
 # ------------------------------------------------ the padded kernels K9-K11
 
-def padded_prep(M) -> dict:
+def padded_prep(M, label: str) -> dict:
     """The host-side part of K9-K11's operands for the host CSR/BSR matrix
-    ``M``: its padded form and the ILU(0) symbolic data (the pair table
-    K11 reads) on the CPU, built once and then copied to each card by
-    :func:`padded_operands`."""
+    ``M`` (named ``label`` in the records): its padded form and the ILU(0)
+    symbolic data (the pair table K11 reads) on the CPU, built once and
+    then copied to each card by :func:`padded_operands`."""
     P = M.pad(device="cpu")
     cls = BlockILU0Preconditioner if isinstance(M, BSRMatrix) \
         else ILU0Preconditioner
     prec = cls(P)
     prec._ensure_symbolic()
     return {"host": M, "P": P, "plan": prec.symbolic.plan,
-            "base": prec._vals}
+            "base": prec._vals, "label": label}
 
 
 def _on(t, device):
@@ -1115,57 +717,9 @@ def padded_operands(prep: dict, device, seed: int) -> dict:
             "upper": triangle(P, P.vals_pad, "upper"), "dinv": dinv,
             "plan": plan, "base": base, "ilu": base,
             "dsrc": invert_diag_blocks(base[P.diagind]) if block else base,
-            "rows": rows, "width": width, "bs": bs}
-
-
-def padded_kernel_cases(op):
-    """(kernel call, twin call) pairs of K9-K11 on ``op``; K10's lower mode
-    also with rhs and x one tensor (the apply's first sweep from zero reads
-    them apart, the bench's chained calls as one)."""
-    v, c, x, r = op["vals"], op["col"], op["x"], op["rhs"]
-    lo, up, dinv = op["lower"], op["upper"], op["dinv"]
-    fac = (op["plan"], op["base"], op["ilu"], op["dsrc"])
-    return {
-        "padded_spmv": [(lambda: padded.padded_spmv(v, c, x),
-                         lambda: padded.padded_spmv_ref(v, c, x))],
-        "padded_lower_sweep": [
-            (lambda: padded.padded_lower_sweep(lo, c, x, x),
-             lambda: padded.padded_lower_sweep_ref(lo, c, x, x)),
-            (lambda: padded.padded_lower_sweep(lo, c, r, x),
-             lambda: padded.padded_lower_sweep_ref(lo, c, r, x))],
-        "padded_upper_sweep": [
-            (lambda: padded.padded_upper_sweep(up, c, dinv, r, x),
-             lambda: padded.padded_upper_sweep_ref(up, c, dinv, r, x))],
-        "padded_factor_sweep": [
-            (lambda: padded.padded_factor_sweep(*fac),
-             lambda: padded.padded_factor_sweep_ref(*fac))],
-    }
-
-
-def padded_work(name: str, op: dict, isz: int) -> tuple:
-    """(bytes, operations) of one call of K9-K11 on ``op``: every padded
-    slot's value (bs² elements) and int32 id, each vector read once and
-    the output written once (K10's upper mode also reads the inverted
-    diagonal); K11 reads base and iterate and writes the result per entry,
-    its int32 ptr and divisor ids, two int32 ids per real pair, and the
-    block divisors once (the scalar's are the iterate, already counted)."""
-    n, W, bs = op["rows"], op["width"], op["bs"]
-    b2 = bs * bs
-    vec, slots = n * bs * isz, n * W * (b2 * isz + 4)
-    if name == "padded_spmv":
-        return slots + 2 * vec, 2 * n * W * b2
-    if name == "padded_lower_sweep":
-        return slots + 3 * vec, 2 * n * W * b2 + n * bs
-    if name == "padded_upper_sweep":
-        return slots + 3 * vec + n * b2 * isz, \
-            2 * n * W * b2 + n * bs + (2 * b2 - bs if bs > 1 else 1) * n
-    plan = op["plan"]
-    nnz, npairs = plan.nnz, plan.pl.shape[0]
-    nlower = int((plan.dtab >= 0).sum())
-    src = plan.nsrc * b2 * isz if bs > 1 else 0
-    return (3 * nnz * b2 * isz + (2 * nnz + 1) * 4 + 8 * npairs + src,
-            npairs * 2 * b2 * bs + nlower * (b2 * (2 * bs - 1) if bs > 1
-                                             else 1))
+            "rows": rows, "width": width, "bs": bs, "dtype": P.dtype,
+            "shape": f"{prep['label']} n={rows} W={width} bs={bs} "
+                     f"{str(P.dtype)[6:]}"}
 
 
 def _sparse_of(op, part: str | None = None):
@@ -1186,99 +740,434 @@ def _sparse_of(op, part: str | None = None):
     return torch.sparse_bsr_tensor(crow, P.colind[keep], vals, size=size)
 
 
-def padded_library(name: str, op):
-    """The one PyTorch call computing K9's function (``torch.mv`` on the
-    CUDA CSR/BSR tensor of the same matrix) or K10's lower mode's
-    (``torch.addmv`` with its strictly lower part), else None; a BSR
-    tensor this torch refuses there is timed in its CSR form (said on a
-    line of its own).  Held to 1e-4 relative against the twin."""
-    if name not in ("padded_spmv", "padded_lower_sweep"):
-        return None
-    lower = name == "padded_lower_sweep"
-    A = _sparse_of(op, "lower" if lower else None)
+def padded_library(op, lower: bool):
+    """One PyTorch call computing K9's function (``torch.mv`` on the CUDA
+    CSR/BSR tensor of the same matrix) or, with ``lower``, K10's lower
+    mode's (``torch.addmv`` with its strictly lower part)."""
     x, r = op["x"].reshape(-1), op["rhs"].reshape(-1)
     if lower:
-        want = padded.padded_lower_sweep_ref(op["lower"], op["col"],
-                                             op["rhs"], op["x"])
-
-        def call(M):
-            return torch.addmv(r, M, x, alpha=-1)
-    else:
-        want = padded.padded_spmv_ref(op["vals"], op["col"], op["x"])
-
-        def call(M):
-            return torch.mv(M, x)
-    form = "csr" if op["bs"] == 1 else "bsr"
-    try:
-        got = call(A)
-    except (RuntimeError, NotImplementedError) as exc:
-        print(f"[library] {name} on a CUDA BSR tensor: {exc}; timing the "
-              "CSR form", flush=True)
-        A = A.to_sparse_csr()
-        got = call(A)
-        form = "csr"
-    rel = float((got.reshape(want.shape) - want).abs().max()
-                / want.abs().max())
-    print(f"[library] {name} bs={op['bs']} yardstick: torch."
-          f"{'addmv' if lower else 'mv'} on a CUDA {form} tensor, relative "
-          f"difference to the twin {rel}", flush=True)
-    if rel > 1e-4:
-        fail(f"the library call differs from {name}'s twin by {rel}")
-    return lambda: call(A)
+        return sparse_yardstick(
+            f"padded_lower_sweep bs={op['bs']}", _sparse_of(op, "lower"),
+            lambda A: torch.addmv(r, A, x, alpha=-1),
+            padded.padded_lower_sweep_ref(op["lower"], op["col"], op["rhs"],
+                                          op["x"]), "torch.addmv")
+    return sparse_yardstick(
+        f"padded_spmv bs={op['bs']}", _sparse_of(op), lambda A: torch.mv(A, x),
+        padded.padded_spmv_ref(op["vals"], op["col"], op["x"]), "torch.mv")
 
 
-def check_padded_kernels(label: str, prep: dict, dtype, seed: int,
-                         timed_run: bool, device="cuda") -> dict:
-    """K9-K11 against their twins on ``prep``'s matrix on the card, each
-    bitwise (the kernels round as their twins do), and with ``timed_run``
-    timed with their bounds, twins and library calls; returns per-kernel
-    records."""
-    op = padded_operands(prep, device, seed)
-    shape = (f"{label} n={op['rows']} W={op['width']} bs={op['bs']} "
-             f"{str(dtype)[6:]}")
+# ------------------------------------------------------ the kernel table ----
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """What the card check holds of one launch name of
+    ``_cuda.KERNEL_SOURCES``.  Each callable field reads an operand set
+    of the kernel's family: ``band_operands`` ("band"), ``block_operands``
+    or ``star_operands`` ("block"), ``padded_operands`` ("padded")."""
+    family: str
+    # the TPU kernel it replaces: file:line of its pallas_call (the block
+    # inverse, K7 and K8: the JAX functions XLA runs, with no pallas_call;
+    # K12: K2's first two calls of an apply chain from zero; K13: the
+    # first two steps of the block apply's fori_loop from zero)
+    replaces: str
+    kernel: Callable     # the wrapper that launches it
+    twin: Callable       # its plain PyTorch twin
+    # op → the argument tuples of its cases; the last case is timed
+    args: Callable
+    # op → (bytes, operations) of one timed call: the least traffic, each
+    # input read once and each output written once
+    work: Callable
+    # op → the one PyTorch call computing the timed case's function, or
+    # why none does (``library_of``, with ``library_ms`` null)
+    library: Callable | str
+    # any difference from the twin fails (the kernel rounds as it does)
+    bitwise: bool = False
+    # K12, K13: op → the two launches from a zero iterate that the timed
+    # case replaces, to be equal to it bitwise after ``+ 0.0``
+    from_zero: Callable | None = None
+    # K2: op → (bytes, operations) of its unit-lower case (the first),
+    # timed as ``lower_ms`` beside ``library``, which computes that case
+    lower: Callable | None = None
+
+    def cases(self, op) -> list:
+        """(kernel call, twin call) of each case on ``op``."""
+        return [twin_pair(self.kernel, self.twin, *a) for a in self.args(op)]
+
+
+def twin_pair(kernel, twin, *args):
+    """(kernel call, twin call) on the same arguments."""
+    return (lambda: kernel(*args), lambda: twin(*args))
+
+
+def per_row(streams: int, flops: int):
+    """The work model of a band kernel that moves ``streams`` (n,) streams
+    of the band's dtype and computes ``flops`` operations a row."""
+    def work(op):
+        n = op["data"].shape[1]
+        return streams * n * op["data"].element_size(), flops * n
+    return work
+
+
+def band_mode(op, upper: bool):
+    """(offsets, diagonals, inverse diagonal) of the band's strict upper
+    part, or of its strict lower part with no inverse diagonal."""
+    offs, data = op["offsets"], op["data"]
+    d0 = offs.index(0)
+    if upper:
+        return offs[d0 + 1:], data[d0 + 1:], op["dinv"]
+    return offs[:d0], data[:d0], None
+
+
+def k2_twice_from_zero(upper: bool):
+    """The two K2 launches from a zero iterate that K12's mode replaces."""
+    def call(op):
+        offs, coeff, dinv = band_mode(op, upper)
+        rhs, zero = op["rhs"], torch.zeros_like(op["rhs"])
+        return lambda: stencil.tri_sweep_stencil(
+            offs, coeff, rhs,
+            stencil.tri_sweep_stencil(offs, coeff, rhs, zero, dinv), dinv)
+    return call
+
+
+def block_dims(op):
+    """(nb, bs, bs², itemsize) of the block band of ``op``."""
+    _, b2, nb = op["data"].shape
+    return nb, math.isqrt(b2), b2, op["data"].element_size()
+
+
+def k5_work(op):
+    """The k block diagonals, x and y."""
+    nb, bs, b2, isz = block_dims(op)
+    k = op["data"].shape[0]
+    return (k * b2 + 2 * bs) * nb * isz, 2 * k * b2 * nb
+
+
+def k6_work(out_dinv: bool):
+    """The centre's base, the pair lowers' base and the pre-shifted pair
+    uppers, the previous inverse diagonal and the output; a contraction
+    per pair, and with ``out_dinv`` the inverse of the new diagonal."""
+    def work(op):
+        nb, bs, b2, isz = block_dims(op)
+        npair = len(op["pair_offs"])
+        contraction = npair * (2 * b2 * (2 * bs - 1) + b2)
+        return ((b2 * (1 + 2 * npair) + 2 * b2) * nb * isz,
+                (contraction + (gj_flops(bs) if out_dinv else 0)) * nb)
+    return work
+
+
+def inverse_work(op):
+    nb, bs, b2, isz = block_dims(op)
+    return 2 * b2 * nb * isz + nb, gj_flops(bs) * nb
+
+
+def block_sweep_work(upper: bool, head: bool):
+    """K7 (``head`` False) or K13 over the mode's blocks: the blocks, the
+    right-hand side, the iterate (K7 only) and the output; the upper mode
+    also reads the inverse diagonal and multiplies by it, and K13's once
+    more for each neighbour (its iterate is the right-hand side times it)."""
+    def work(op):
+        nb, bs, b2, isz = block_dims(op)
+        nsel = len(op["up" if upper else "lo"])
+        streams = nsel * b2 + (2 if head else 3) * bs + (b2 if upper else 0)
+        dinv_muls = ((1 + nsel) if head else 1) if upper else 0
+        return (streams * nb * isz,
+                (2 * nsel * b2 + bs + dinv_muls * (2 * b2 - bs)) * nb)
+    return work
+
+
+def k7_twice_from_zero(upper: bool):
+    """The two K7 launches from a zero iterate that K13's mode replaces."""
+    def call(op):
+        data, offs, z, dinv = (op["data"], op["offsets"], op["z_cols"],
+                               op["dinv"])
+        sel = op["up" if upper else "lo"]
+
+        def sweep(it):
+            if upper:
+                return bstencil.bdia_upper_sweep_stencil(data, dinv, offs, sel,
+                                                         z, it)
+            return bstencil.bdia_lower_sweep_stencil(data, offs, sel, z, it)
+        return lambda: sweep(sweep(torch.zeros_like(z)))
+    return call
+
+
+def padded_mv_work(mode: str):
+    """K9 (``mode`` "spmv") or a K10 mode: every padded slot's value (bs²
+    elements) and int32 id, each vector read once and the output written
+    once; K10's upper mode also reads the inverted diagonal."""
+    def work(op):
+        n, W, bs = op["rows"], op["width"], op["bs"]
+        b2, isz = bs * bs, op["vals"].element_size()
+        vec, slots = n * bs * isz, n * W * (b2 * isz + 4)
+        flops = 2 * n * W * b2
+        if mode == "spmv":
+            return slots + 2 * vec, flops
+        if mode == "lower":
+            return slots + 3 * vec, flops + n * bs
+        return (slots + 3 * vec + n * b2 * isz,
+                flops + n * bs + (2 * b2 - bs if bs > 1 else 1) * n)
+    return work
+
+
+def k11_work(op):
+    """Base and iterate read and the result written per entry, its int32
+    ptr and divisor ids, two int32 ids per real pair, and the block
+    divisors once (the scalar's are the iterate, already counted)."""
+    bs, isz, plan = op["bs"], op["vals"].element_size(), op["plan"]
+    b2 = bs * bs
+    nnz, npairs = plan.nnz, plan.pl.shape[0]
+    nlower = int((plan.dtab >= 0).sum())
+    src = plan.nsrc * b2 * isz if bs > 1 else 0
+    return (3 * nnz * b2 * isz + (2 * nnz + 1) * 4 + 8 * npairs + src,
+            npairs * 2 * b2 * bs + nlower * (b2 * (2 * bs - 1) if bs > 1
+                                             else 1))
+
+
+UPPER_REASON = ("dinv·(y − U z) is two products: torch.addmv computes only "
+                "y − U z")
+BLOCK_FACTOR_REASON = "no PyTorch call computes a block Chow-Patel sweep"
+KERNELS = {
+    # K1: 7 diagonals + x + y
+    "dia_spmv": Kernel(
+        "band", "blasted_tpu/ops/stencil.py:221", stencil.dia_spmv_stencil,
+        stencil.dia_spmv_ref,
+        lambda op: [(op["offsets"], op["data"], op["x"])],
+        per_row(9, 2 * 7), band_mv),
+    # K2 as the unit-lower sweep (3 diagonals + rhs + y + out), then as
+    # the upper sweep (also dinv; timed)
+    "tri_sweep": Kernel(
+        "band", "blasted_tpu/ops/stencil.py:295", stencil.tri_sweep_stencil,
+        stencil.tri_sweep_ref,
+        lambda op: [(offs, coeff, op["rhs"], op["y"], dinv)
+                    for offs, coeff, dinv in (band_mode(op, False),
+                                              band_mode(op, True))],
+        per_row(7, 2 * 3 + 1), band_lower_addmv("y"),
+        lower=per_row(6, 2 * 3)),
+    # K12's lower mode: 3 diagonals + rhs + out; its upper mode also dinv,
+    # and the 3 neighbours' rhs·dinv
+    "zero_start_lower_sweep": Kernel(
+        "band", "blasted_tpu/ops/stencil.py:295",
+        stencil.zero_start_sweep_stencil, stencil.zero_start_sweep_ref,
+        lambda op: [(*band_mode(op, False)[:2], op["rhs"])],
+        per_row(5, 2 * 3), band_lower_addmv("rhs"),
+        bitwise=True, from_zero=k2_twice_from_zero(False)),
+    "zero_start_upper_sweep": Kernel(
+        "band", "blasted_tpu/ops/stencil.py:295",
+        stencil.zero_start_sweep_stencil, stencil.zero_start_sweep_ref,
+        lambda op: [(*band_mode(op, True)[:2], op["rhs"], op["dinv"])],
+        per_row(6, 3 + 2 * 3 + 1),
+        "dinv·(y − U (y·dinv)) is three products: torch.addmv computes "
+        "only y − U z", bitwise=True, from_zero=k2_twice_from_zero(True)),
+    # K3: base0 + 3 lowers + 3 pre-shifted uppers + u0 + out
+    "factor_u0": Kernel(
+        "band", "blasted_tpu/ops/stencil.py:383", stencil.factor_u0_stencil,
+        stencil.factor_u0_ref,
+        lambda op: [(op["lower_offs"], op["data"][3], op["base_l"],
+                     op["ubs"], op["u0"])],
+        per_row(9, 3 * 3),
+        "no PyTorch call computes a compressed Chow-Patel sweep"),
+    # K4: 3 lowers + u0 + 3 outputs
+    "factor_lower": Kernel(
+        "band", "blasted_tpu/ops/stencil.py:436",
+        stencil.factor_lower_stencil, stencil.factor_lower_ref,
+        lambda op: [(op["lower_offs"], op["base_l"], op["u0"])],
+        per_row(7, 3), "no PyTorch call computes a guarded shifted division"),
+    "bspmv": Kernel(
+        "block", "blasted_tpu/ops/bstencil.py:242",
+        bstencil.bdia_spmv_stencil, bstencil.bdia_spmv_ref,
+        lambda op: [(op["offsets"], op["data"], op["x"])], k5_work,
+        block_library),
+    "bfactor_dinv": Kernel(
+        "block", "blasted_tpu/ops/bstencil.py:448",
+        bstencil.bdia_factor_stencil, bstencil.bdia_factor_ref,
+        lambda op: [(op["pair_offs"], op["base0"], op["base_l"], op["ubs"],
+                     op["dinv"], True)], k6_work(True), BLOCK_FACTOR_REASON),
+    "bfactor_u0": Kernel(
+        "block", "blasted_tpu/ops/bstencil.py:448",
+        bstencil.bdia_factor_stencil, bstencil.bdia_factor_ref,
+        lambda op: [(op["pair_offs"], op["base0"], op["base_l"], op["ubs"],
+                     op["dinv"], False)], k6_work(False), BLOCK_FACTOR_REASON),
+    # checked with zero pivots and identity rows, timed on the nonsingular
+    # diagonal under the full diagonal mask
+    "block_inverse": Kernel(
+        "block", "blasted_tpu/ops/bstencil.py:284",
+        bstencil.bdia_block_inverse, bstencil.block_inverse_ref,
+        lambda op: [(op["u0"], op["dmask"]), (op["base0"], op["mask"][3])],
+        inverse_work, inverse_library),
+    # K7, the lower mode also over no diagonal (z − 0), the upper mode also
+    # with y and z one tensor, as the bench's chained pair calls it
+    "bdia_lower_sweep": Kernel(
+        "block", "blasted_tpu/ops/bdia.py:66",
+        bstencil.bdia_lower_sweep_stencil, bstencil.bdia_lower_sweep_ref,
+        lambda op: [(op["data"], op["offsets"], sel, op["z_cols"],
+                     op["y_cols"]) for sel in ([], op["lo"])],
+        block_sweep_work(False, False), lower_block_library),
+    "bdia_upper_sweep": Kernel(
+        "block", "blasted_tpu/ops/bdia.py:73",
+        bstencil.bdia_upper_sweep_stencil, bstencil.bdia_upper_sweep_ref,
+        lambda op: [(op["data"], op["dinv"], op["offsets"], op["up"],
+                     op["y_cols"], z) for z in (op["y_cols"], op["z_cols"])],
+        block_sweep_work(True, False), UPPER_REASON),
+    "bdia_head_lower_sweep": Kernel(
+        "block", "blasted_tpu/precond/bdia_ilu0.py:455",
+        bstencil.bdia_head_sweep_stencil, bstencil.bdia_head_sweep_ref,
+        lambda op: [(op["data"], op["offsets"], op["lo"], op["z_cols"])],
+        block_sweep_work(False, True),
+        lambda op: lower_block_library(op, "z_cols"), bitwise=True,
+        from_zero=k7_twice_from_zero(False)),
+    "bdia_head_upper_sweep": Kernel(
+        "block", "blasted_tpu/precond/bdia_ilu0.py:461",
+        bstencil.bdia_head_sweep_stencil, bstencil.bdia_head_sweep_ref,
+        lambda op: [(op["data"], op["offsets"], op["up"], op["z_cols"],
+                     op["dinv"])], block_sweep_work(True, True),
+        "dinv·(y − U (dinv·y)) is three products: torch.addmv computes "
+        "only y − U z", bitwise=True, from_zero=k7_twice_from_zero(True)),
+    # K8 in the distributed factor's stacked form, then (timed) in the
+    # tuple form [main] runs: the base of the 3 lowers and the diagonal,
+    # the 7 rows of the iterate and the 7 rows of its fresh output (the 3
+    # pair-free uppers copied through, as the twin's stack writes them);
+    # the diagonal's 3 pair products and subtractions, the 3 lowers'
+    # divisions
+    "plain_factor_sweep": Kernel(
+        "band", "blasted_tpu/precond/dia_ilu0.py:75",
+        stencil.plain_factor_sweep_stencil, stencil.plain_factor_sweep_ref,
+        lambda op: [(op[plan], op["data"], op["ilu"])
+                    for plan in ("plan_stacked", "plan_tuple")],
+        per_row(18, 2 * 3 + 3),
+        "no PyTorch call computes a Chow-Patel sweep (shifted products, a "
+        "guarded division, a re-mask)"),
+    "padded_spmv": Kernel(
+        "padded", "blasted_tpu/ops/spmv.py:23", padded.padded_spmv,
+        padded.padded_spmv_ref,
+        lambda op: [(op["vals"], op["col"], op["x"])],
+        padded_mv_work("spmv"), lambda op: padded_library(op, False),
+        bitwise=True),
+    # K10's lower mode also with rhs and x one tensor (the apply's first
+    # sweep from zero reads them apart, the bench's chained calls as one)
+    "padded_lower_sweep": Kernel(
+        "padded", "blasted_tpu/ops/sweeps.py:86", padded.padded_lower_sweep,
+        padded.padded_lower_sweep_ref,
+        lambda op: [(op["lower"], op["col"], w, op["x"])
+                    for w in (op["x"], op["rhs"])],
+        padded_mv_work("lower"), lambda op: padded_library(op, True),
+        bitwise=True),
+    "padded_upper_sweep": Kernel(
+        "padded", "blasted_tpu/ops/sweeps.py:93", padded.padded_upper_sweep,
+        padded.padded_upper_sweep_ref,
+        lambda op: [(op["upper"], op["col"], op["dinv"], op["rhs"],
+                     op["x"])], padded_mv_work("upper"), UPPER_REASON,
+        bitwise=True),
+    "padded_factor_sweep": Kernel(
+        "padded", "blasted_tpu/precond/ilu0.py:304",
+        padded.padded_factor_sweep, padded.padded_factor_sweep_ref,
+        lambda op: [(op["plan"], op["base"], op["ilu"], op["dsrc"])],
+        k11_work,
+        "no PyTorch call computes a Chow-Patel sweep over ILU pair lists",
+        bitwise=True),
+}
+# the padded path's kernels (K9, K10 in its two modes, K11)
+PADDED = tuple(n for n, k in KERNELS.items() if k.family == "padded")
+
+
+def check_family(family: str, op: dict, timed_names=(), library=True,
+                 bitwise=False, say: str | None = "[kernel]",
+                 only=None) -> dict:
+    """The one check of the kernel table: each kernel of ``family`` (of
+    ``only``, where given) against its twin on the operands ``op``, to the
+    bit where its entry or ``bitwise`` says so; those named in
+    ``timed_names`` timed on their last case with their bound, their twin
+    and, with ``library``, their library call (K2 also its unit-lower
+    case); each from-zero kernel also against the launches it replaces
+    (``from_zero_check``).  Prints each record after ``say`` (None:
+    nothing) and returns them by name."""
+    dtype, shape = op["dtype"], op["shape"]
     out = {}
-    for name, cases in padded_kernel_cases(op).items():
+    for name, entry in KERNELS.items():
+        if entry.family != family or (only is not None and name not in only):
+            continue
+        cases = entry.cases(op)
         rec = compare(name, shape, cases, dtype)
-        if rec["max_abs_err"] != 0.0:
-            fail(f"{name} {shape}: not bitwise equal to its twin ({rec})")
         rec["shape"] = shape
-        if timed_run:
-            kernel, twin = cases[-1]
-            timed(rec, name, kernel, twin,
-                  *padded_work(name, op, dtype.itemsize), dtype,
-                  padded_library(name, op))
+        if (bitwise or entry.bitwise) and rec["max_abs_err"] != 0.0:
+            fail(f"{name} {shape}: not bitwise equal to its twin ({rec})")
+        if name in timed_names:
+            reason = entry.library if isinstance(entry.library, str) else None
+            call = entry.library(op) if library and reason is None else None
+            timed(rec, *cases[-1], *entry.work(op), dtype,
+                  None if entry.lower else call, reason)
+            if entry.lower and call is not None:
+                rec["lower_ms"] = cuda_ms(cases[0][0])[0]
+                rec["lower_bound_ms"] = bound(*entry.lower(op),
+                                              dtype)["bound_ms"]
+                rec["library_ms"] = cuda_ms(call)[0]
+                rec["library_of"] = "unit-lower sweep (lower_ms)"
         out[name] = rec
-        print(f"[kernel] {name} {shape}: "
-              + " ".join(f"{k}={v}" for k, v in rec.items()), flush=True)
+        if say:
+            print(f"{say} {name} {shape}: "
+                  + " ".join(f"{k}={v}" for k, v in rec.items()), flush=True)
+        if entry.from_zero:
+            from_zero_check(name, op, say)
     return out
 
 
-def check_all_padded_kernels(A, B) -> dict:
-    """K9-K11 at the padded paths' shapes (the [padded-main] and
-    [padded-block-main] host systems, f32, timed), then in f64 (48³
-    scalar, bs = 4 g = 24 block) and at bs = 5 (g = 48, f32); the scalar
-    records carry the block ones under ``block``."""
-    recs = check_padded_kernels("padded-main", padded_prep(A),
-                                torch.float32, 41, True)
+def from_zero_check(name: str, op: dict, say: str | None = "[kernel]"):
+    """``name``'s timed case on ``op`` against its twin, bitwise, and
+    against the two launches from a zero iterate that it replaces (its
+    entry's ``from_zero``), bitwise after ``+ 0.0`` (which clears the sign
+    of a zero)."""
+    k = KERNELS[name]
+    kernel, twin = k.cases(op)[-1]
+    got, want, two = kernel(), twin(), k.from_zero(op)()
+    if got.is_cuda:
+        torch.cuda.synchronize(got.device)
+    if not torch.equal(got, want) or not torch.equal(got + 0.0, two + 0.0):
+        fail(f"{name} {op['shape']}: off its twin by "
+             f"{float((got - want).abs().max())} or off the two launches "
+             f"from zero it replaces by {float((got - two).abs().max())}")
+    if say:
+        print(f"{say} {name} {op['shape']}: bitwise equal to its twin and to "
+              "the two launches from zero it replaces", flush=True)
+
+
+def ex19_head() -> dict:
+    """[ex19-head]: K7 and K13 at the shape of the benchmark's ex19 cell
+    (bs = 4, f64, nb = 1,048,576, the 5-point block star), each held to
+    its twin (K13 bitwise, and to K7's two launches from zero) and timed,
+    and one triangle pair of an apply with four sweeps a triangle timed
+    both ways: K13 + 2 K7 a triangle against a fill + 4 K7."""
+    op = star_operands(EX19_NX, EX19_BS, torch.float64, "cuda", seed=19)
+    offs, data, dinv, rhs = op["offsets"], op["data"], op["dinv"], op["z_cols"]
+    lo, up = op["lo"], op["up"]
+
+    def chain(head: bool):
+        def run():
+            zero = None if head else torch.zeros_like(rhs)
+            y = run_sweeps(2 if head else 4, lambda v: (
+                bstencil.bdia_lower_sweep_stencil(data, offs, lo, rhs, v)),
+                bstencil.bdia_head_sweep_stencil(data, offs, lo, rhs)
+                if head else zero)
+            return run_sweeps(2 if head else 4, lambda v: (
+                bstencil.bdia_upper_sweep_stencil(data, dinv, offs, up, y, v)),
+                bstencil.bdia_head_sweep_stencil(data, offs, up, y, dinv)
+                if head else zero)
+        return run
+
+    got, want = chain(True)(), chain(False)()
+    torch.cuda.synchronize()
+    if not torch.equal(got + 0.0, want + 0.0):
+        fail(f"[ex19-head]: the folded chain differs from K7's chain from "
+             f"zero by {float((got - want).abs().max())}")
+    out = check_family("block", op, KERNELS, library=False,
+                       say="[ex19-head]",
+                       only=("bdia_lower_sweep", "bdia_upper_sweep",
+                             *BLOCK_HEAD))
+    rec = {"apply_bitwise_k7_chain": True,
+           "apply_pair_ms_folded": cuda_ms(chain(True))[0],
+           "apply_pair_ms_k7_chain": cuda_ms(chain(False))[0]}
+    print("[ex19-head] " + json.dumps(rec), flush=True)
+    del op
     torch.cuda.empty_cache()
-    brecs = check_padded_kernels("padded-block-main", padded_prep(B),
-                                 torch.float32, 42, True)
-    torch.cuda.empty_cache()
-    A64, _, _ = poisson3d_system((CHECK_NPTS,) * 3)
-    B64, _ = block_system(BLOCK_CHECK_G, BLOCK_BS, np.float64, seed=43)
-    B5, _ = block_system(PADDED_BS5_G, 5, np.float32, seed=44)
-    for label, M, dtype in (("f64", A64, torch.float64),
-                            ("f64 block", B64, torch.float64),
-                            ("bs=5", B5, torch.float32)):
-        check_padded_kernels(label, padded_prep(M), dtype, 45, False)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "bound_share", "max_abs_err", "shape")
-    for name, rec in recs.items():
-        rec["block"] = {k: brecs[name][k] for k in keys}
-        rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 brecs[name]["max_abs_err"])
-    torch.cuda.empty_cache()
-    return recs
+    return out
 
 
 def true_relres(A, b, x: torch.Tensor) -> float:
@@ -1311,67 +1200,114 @@ def block_system(g: int, bs: int, dtype, seed: int):
     return B, b
 
 
-def ilu_padded_counts(prec, iters: int, spmv: int) -> dict:
-    """K9-K11 launches of one padded ILU(0) solve of ``iters`` BiCGSTAB
-    iterations: K9 once per SpMV (``spmv``); K10 ``napplysweeps`` times
-    per mode per apply, two applies per iteration, or, for a SEQUENTIAL
-    apply, once per level of each triangle (the wavefront solves run one
-    sweep per level); K11 once per factor sweep, none for the SEQUENTIAL
-    factor (torch's slot schedule)."""
-    applies = 2 * iters
-    if prec.napplysweeps == SEQUENTIAL:
-        _, nlow, _, nup = prec._levels
-        low, up = applies * nlow, applies * nup
+# each ILU(0) route's kernels: its SpMV, the launches of one factor of
+# nbuild sweeps (None: at least once; block: nbuild − 1 Dinv-emitting K6
+# sweeps, one U0-emitting sweep and the block inverse), its apply sweep in
+# the lower and the upper mode, and the kernels that head each apply chain
+# from zero in each mode (None: the route runs plain chains)
+Route = collections.namedtuple("Route", "spmv factor sweeps heads")
+ILU_ROUTES = {
+    "dia": Route("dia_spmv", lambda nb: {"plain_factor_sweep": nb},
+                 ("tri_sweep",) * 2, ZERO_START),
+    "bdia": Route("bspmv", lambda nb: {"bfactor_dinv": nb - 1,
+                                       "bfactor_u0": 1,
+                                       "block_inverse": None},
+                  ("bdia_lower_sweep", "bdia_upper_sweep"), BLOCK_HEAD),
+    "padded": Route("padded_spmv", lambda nb: {
+        "padded_factor_sweep": 0 if nb == SEQUENTIAL else nb},
+        ("padded_lower_sweep", "padded_upper_sweep"), None),
+}
+# a shard of DistDiaSolver or DistBlockDiaSolver: plain chains, and the
+# block factor inverts twice (before the sweeps and for the apply)
+ILU_ROUTES["dist-dia"] = ILU_ROUTES["dia"]._replace(heads=None)
+ILU_ROUTES["dist-bdia"] = ILU_ROUTES["bdia"]._replace(heads=None, factor=(
+    lambda nb: {"bfactor_dinv": nb - 1, "bfactor_u0": 1, "block_inverse": 2}))
+
+
+def sweeps(opts: dict) -> tuple:
+    """(nbuild, napply) of ``opts``' ``blasted_async_sweeps``."""
+    return tuple(map(int, opts["blasted_async_sweeps"].split(",")))
+
+
+def ilu_launches(route: str, nbuild: int, napply: int, iters: int, *,
+                 spmvs: int | None = None, factor: bool = True,
+                 mixed: bool = False, levels=None) -> dict:
+    """The launches of one ILU(0) BiCGSTAB solve of ``iters`` iterations on
+    ``route`` (``ILU_ROUTES``), which the program's apply rule gives: the
+    SpMV ``spmvs`` times (2·iters + 1 by default); with ``factor`` one
+    factor of ``nbuild`` sweeps; two applies an iteration, each from zero:
+    with ``napply`` ≥ 2 and a route with heads, each mode's head once and
+    its sweep ``napply − 2`` times, else its sweep ``napply`` times, or,
+    SEQUENTIAL, once per level of ``levels`` (lower, upper); with ``mixed``
+    (the factor stored in another dtype than the vectors) the apply takes
+    the twins' products and launches none.  A count, or None for "at
+    least once"."""
+    r = ILU_ROUTES[route]
+    out = {r.spmv: 2 * iters + 1 if spmvs is None else spmvs}
+    if factor:
+        out.update(r.factor(nbuild))
+    applies = 0 if mixed else 2 * iters
+    if napply == SEQUENTIAL:
+        per_apply = levels
+    elif r.heads and napply >= 2:
+        per_apply = (napply - 2,) * 2
+        out.update(dict.fromkeys(r.heads, applies))
     else:
-        low = up = applies * prec.napplysweeps
-    return {"padded_spmv": spmv, "padded_lower_sweep": low,
-            "padded_upper_sweep": up,
-            "padded_factor_sweep": 0 if prec.nbuildsweeps == SEQUENTIAL
-            else prec.nbuildsweeps}
+        per_apply = (napply,) * 2
+    for name, n in zip(r.sweeps, per_apply):
+        out[name] = out.get(name, 0) + n * applies
+    return out
 
 
-def expect_padded(label: str, counts: dict, want: dict) -> None:
-    """Each of K9-K11 launched exactly as ``want`` says (absent: never);
-    the other kernels are left to the caller."""
-    for name in PADDED:
-        if counts[name] != want.get(name, 0):
-            fail(f"{label}: {name} launched {counts[name]} times, expected "
-                 f"{want.get(name, 0)}")
+def route_kernels(route: str) -> dict:
+    """Every kernel an ILU(0) solve on ``route`` launches, each at least
+    once (``expect_launches``)."""
+    return dict.fromkeys(ilu_launches(route, 2, 2, 1))
 
 
-def apply_counts(opts: dict, iters: int) -> dict:
-    """K2's and K12's launches in a single-card BiCGSTAB solve of
-    ``iters`` iterations with DIA ILU(0) applied from zero (two applies an
-    iteration): each triangle one K12 and ``napply − 2`` K2 an apply."""
-    napply = int(opts["blasted_async_sweeps"].split(",")[1])
-    applies = 2 * iters
-    return {"tri_sweep": 2 * (napply - 2) * applies,
-            **dict.fromkeys(ZERO_START, applies)}
+def padded_ilu_launches(prec, iters: int) -> dict:
+    """``ilu_launches`` of a padded ILU(0) solve by ``prec``'s sweeps (a
+    SEQUENTIAL apply: its levels, as the wavefront solves run one sweep
+    per level; a SEQUENTIAL factor: torch's slot schedule, no K11)."""
+    levels = prec._levels[1::2] if prec.napplysweeps == SEQUENTIAL else None
+    return ilu_launches("padded", prec.nbuildsweeps, prec.napplysweeps,
+                        iters, levels=levels)
 
 
-def block_apply_counts(opts: dict, iters: int) -> dict:
-    """K7's and K13's launches in a single-card BiCGSTAB solve of
-    ``iters`` iterations with block-DIA ILU(0) applied from zero (two
-    applies an iteration): each triangle one K13 and ``napply − 2`` K7 an
-    apply."""
-    napply = int(opts["blasted_async_sweeps"].split(",")[1])
-    applies = 2 * iters
-    return {"bdia_lower_sweep": (napply - 2) * applies,
-            "bdia_upper_sweep": (napply - 2) * applies,
-            **dict.fromkeys(BLOCK_HEAD, applies)}
-
-
-def expect_launches(label: str, counts: dict, want: dict) -> None:
+def expect_launches(label: str, counts: dict, want: dict,
+                    only=None) -> None:
     """Each kernel of ``want`` launched as often as it says (an int, or
-    None for "at least once"); every other kernel never."""
-    for name, n in counts.items():
-        if name in want:
-            if (want[name] is None and n == 0) or \
-                    (want[name] is not None and n != want[name]):
-                fail(f"{label}: {name} launched {n} times, expected "
-                     f"{'at least 1' if want[name] is None else want[name]}")
-        elif n:
-            fail(f"{label}: {name} launched {n} times, expected none")
+    None for "at least once"); every other kernel, or every other one of
+    ``only`` where the caller checks the rest, never."""
+    for name in counts if only is None else only:
+        n, w = counts[name], want.get(name, 0)
+        if n == 0 if w is None else n != w:
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{'at least 1' if w is None else w}")
+
+
+# ILU(0) 4,4 on the 160³ band: K1, K2 and K12 (each apply from zero); its
+# factor is plain (R4): K8 once per sweep
+ILU_KERNELS = {**route_kernels("dia"), "plain_factor_sweep": 4}
+# [krylov-main]: (label, options, kernels the solve must launch)
+KRYLOV_CASES = [
+    ("gmres+ilu0", {"ksp_type": "gmres", "restart": 30,
+                    "blasted_pc_type": "ilu0",
+                    "blasted_async_sweeps": "4,4"}, ILU_KERNELS),
+    ("gcr+ilu0", {"ksp_type": "gcr", "restart": 30,
+                  "blasted_pc_type": "ilu0",
+                  "blasted_async_sweeps": "4,4"}, ILU_KERNELS),
+    ("cg+jacobi", {"ksp_type": "cg", "blasted_pc_type": "jacobi"},
+     {"dia_spmv": "cg"}),
+    ("bicgstab+sgs", {"ksp_type": "bicgstab", "blasted_pc_type": "sgs",
+                      "blasted_async_sweeps": "1,2"},
+     {"dia_spmv": "bicgstab"}),
+    ("bicgstab+gs", {"ksp_type": "bicgstab", "blasted_pc_type": "gs"},
+     {"dia_spmv": "bicgstab"}),
+    ("bicgstab+cscbgs", {"ksp_type": "bicgstab",
+                         "blasted_pc_type": "cscbgs"},
+     {"dia_spmv": "bicgstab"}),
+]
 
 
 def krylov_solver(opts: dict):
@@ -1477,11 +1413,8 @@ def main_path(A, b, t_host: float):
     rec, ctx = run_main("main", A, b, t_host, {"n": A.nrows, "nnz": A.nnz})
     # the plain factor route below JAX's gate (R4): K8 once per sweep, no
     # K3/K4; each apply from zero: K12 heads each triangle's chain
-    nbuild = int(MAIN_OPTS["blasted_async_sweeps"].split(",")[0])
     expect_launches("main", rec["launches"],
-                    {"dia_spmv": 2 * rec["iters"] + 1,
-                     **apply_counts(MAIN_OPTS, rec["iters"]),
-                     "plain_factor_sweep": nbuild})
+                    ilu_launches("dia", *sweeps(MAIN_OPTS), rec["iters"]))
     main_zero_start(ctx.prec, b)
     del ctx
     return rec["launches"], rec, A, b
@@ -1495,14 +1428,14 @@ def main_zero_start(prec, b) -> None:
     sweeps from zero it replaces, bitwise after ``+ 0.0``; K12 timed there
     beside K2."""
     D, st = prec.mat, prec.state
-    d0 = D.d0
-    lo, up = D.offsets[:d0], D.offsets[d0 + 1:]
     r = torch.from_numpy(b).to(D.device)
-    y = stencil.zero_start_sweep_stencil(lo, st.ilu[:d0], r)
-    zero_start_is_k2_from_zero("[main] state", lo, st.ilu[:d0], up,
-                               st.ilu[d0 + 1:], st.ilu_dinv, r)
-    zero_start_is_k2_from_zero("[main] state, upper on y", lo, st.ilu[:d0],
-                               up, st.ilu[d0 + 1:], st.ilu_dinv, y)
+    state = {"offsets": D.offsets, "data": st.ilu, "dinv": st.ilu_dinv}
+    y = stencil.zero_start_sweep_stencil(*band_mode(state, False)[:2], r)
+    on_r = dict(state, rhs=r, y=y, shape="[main] state")
+    on_y = dict(state, rhs=y, y=r, shape="[main] state, upper on y")
+    for op in (on_r, on_y):
+        for name in ZERO_START:
+            from_zero_check(name, op)
     nsw = prec.napplysweeps
 
     def k2_chain():
@@ -1518,14 +1451,14 @@ def main_zero_start(prec, b) -> None:
     rec = {"apply_bitwise_k2_chain": True,
            "apply_ms": cuda_ms(lambda: prec.apply_flat(r))[0],
            "k2_chain_apply_ms": cuda_ms(k2_chain)[0],
-           "k12_lower_ms": cuda_ms(lambda: stencil.zero_start_sweep_stencil(
-               lo, st.ilu[:d0], r))[0],
-           "k12_upper_ms": cuda_ms(lambda: stencil.zero_start_sweep_stencil(
-               up, st.ilu[d0 + 1:], y, st.ilu_dinv))[0],
-           "k2_lower_ms": cuda_ms(lambda: stencil.tri_sweep_stencil(
-               lo, st.ilu[:d0], r, y))[0],
-           "k2_upper_ms": cuda_ms(lambda: stencil.tri_sweep_stencil(
-               up, st.ilu[d0 + 1:], y, r, st.ilu_dinv))[0]}
+           # the kernel calls of the entries' cases: K12 lower on b, K12
+           # upper on y, K2 lower (b, y), K2 upper (y, b)
+           "k12_lower_ms": cuda_ms(KERNELS["zero_start_lower_sweep"].cases(
+               on_r)[0][0])[0],
+           "k12_upper_ms": cuda_ms(KERNELS["zero_start_upper_sweep"].cases(
+               on_y)[0][0])[0],
+           "k2_lower_ms": cuda_ms(KERNELS["tri_sweep"].cases(on_r)[0][0])[0],
+           "k2_upper_ms": cuda_ms(KERNELS["tri_sweep"].cases(on_y)[1][0])[0]}
     print("[main] [zero-start] " + json.dumps(rec), flush=True)
 
 
@@ -1544,17 +1477,9 @@ def block_main_path(B, b, t_host: float):
     rec, _ = run_main("block-main", B, b, t_host,
                       {"bs": B.bs, "nb": B.nbrows, "n": B.nrows,
                        "nnzb": B.nnzb}, ILU44_OPTS)
-    nbuild = int(ILU44_OPTS["blasted_async_sweeps"].split(",")[0])
-    # K6: nbuild − 1 Dinv-emitting sweeps and one U0-emitting sweep; the
-    # block inverse before the sweeps and for the apply's diagonal; each
-    # triangle of an apply from zero: one K13 and napply − 2 K7, two
-    # applies per iteration
-    factor = {"bfactor_dinv": nbuild - 1, "bfactor_u0": 1,
-              "block_inverse": None}
     it = rec["iters"]
     expect_launches("block-main", rec["launches"],
-                    {"bspmv": 2 * it + 1, **factor,
-                     **block_apply_counts(ILU44_OPTS, it)})
+                    ilu_launches("bdia", *sweeps(ILU44_OPTS), it))
     # [block-mixed]: the factors stored in bfloat16, so the apply takes
     # the twin's products (the dtype rule of soa_*_sweep): no K7 or K13
     mrec, ctx = run_main("block-mixed", B, b, 0.0,
@@ -1564,7 +1489,8 @@ def block_main_path(B, b, t_host: float):
         fail(f"block-mixed: the factor is stored in {ctx.prec.state.ilu.dtype}")
     del ctx
     expect_launches("block-mixed", mrec["launches"],
-                    {"bspmv": 2 * mrec["iters"] + 1, **factor})
+                    ilu_launches("bdia", *sweeps(ILU44_OPTS), mrec["iters"],
+                                 mixed=True))
     print("[block-mixed] " + json.dumps({
         "iters_mixed_vs_f32": [mrec["iters"], it],
         "solve_ms_steady_mixed_vs_f32": [1e3 * mrec["solve_s"],
@@ -1601,7 +1527,8 @@ def device_independence(label: str, A, b, opts=None, case: str = "",
         label = f"{label}] [{case}"
     print(f"[{label}] " + json.dumps(rec), flush=True)
     if padded_want is not None:
-        expect_padded(label, counts, padded_want(ctx.prec, ig.iters))
+        expect_launches(label, counts, padded_want(ctx.prec, ig.iters),
+                        only=PADDED)
     if not (ig.converged and ic.converged):
         fail(f"{label}: f64 solve did not converge: {rec}")
     if route and not rec["route"].startswith(f"{route} "):
@@ -1638,8 +1565,7 @@ def padded_path(label: str, A, b, main_iters: int | None):
     rec, ctx = run_main(label, A, b, 0.0,
                         {"n": A.nrows, "host_system": "reused"}, PADDED_OPTS)
     it = rec["iters"]
-    expect_launches(label, rec["launches"],
-                    ilu_padded_counts(ctx.prec, it, 2 * it + 1))
+    expect_launches(label, rec["launches"], padded_ilu_launches(ctx.prec, it))
     if main_iters is not None and abs(rec["iters"] - main_iters) > 1:
         fail(f"{label}: {rec['iters']} iterations, the banded path took "
              f"{main_iters}")
@@ -1778,10 +1704,7 @@ def padded_device_independence() -> None:
     (so the stopping step).  At rtol 1e-8 every case stops at least 6 %
     below the threshold and one step above it.  Each card solve launches
     K9-K11 exactly as its route says: the ILU(0) rule of
-    ``ilu_padded_counts``, K9 alone for Jacobi, none on DIA."""
-    def ilu_rule(prec, it):
-        return ilu_padded_counts(prec, it, 2 * it + 1)
-
+    ``padded_ilu_launches``, K9 alone for Jacobi, none on DIA."""
     def spmv_only(prec, it):
         return {"padded_spmv": 2 * it + 1}
 
@@ -1790,14 +1713,15 @@ def padded_device_independence() -> None:
 
     A, b, _ = poisson3d_system((CHECK_NPTS,) * 3)
     ilu = dict(ILU44_OPTS, prefer_dia=False)
-    cases = [("ilu0 4,4", A, b, ilu, "PaddedCSR", ilu_rule),
+    cases = [("ilu0 4,4", A, b, ilu, "PaddedCSR", padded_ilu_launches),
              ("seqilu0", A, b, dict(ilu, blasted_pc_type="seqilu0"),
-              "PaddedCSR", ilu_rule),
+              "PaddedCSR", padded_ilu_launches),
              ("jacobi padded", A, b, dict(ilu, blasted_pc_type="jacobi"),
               "PaddedCSR", spmv_only),
              ("default options", A, b, {"rtol": 1e-10}, "DiaMatrix", none)]
     B, bb = block_system(BLOCK_CHECK_G, BLOCK_BS, np.float64, seed=9)
-    cases.append(("block ilu0 4,4", B, bb, ilu, "PaddedBSR", ilu_rule))
+    cases.append(("block ilu0 4,4", B, bb, ilu, "PaddedBSR",
+                  padded_ilu_launches))
     # RCM bands the permuted 8³ grid into 105 diagonals (K1 on all of
     # them); the 46³ one it leaves past the 128 of the route's limit
     Ap, bp = permuted(10)
@@ -1805,7 +1729,7 @@ def padded_device_independence() -> None:
                   "DiaMatrix", none))
     Ap, bp = permuted(CHECK_NPTS)
     cases.append(("permuted 48, RCM to padded", Ap, bp, ILU44_OPTS,
-                  "PaddedCSR", ilu_rule))
+                  "PaddedCSR", padded_ilu_launches))
     for name, M, rhs, opts, route, rule in cases:
         device_independence("padded-device-independence", M, rhs, opts,
                             case=name, rtol=1e-8, route=route,
@@ -1815,31 +1739,52 @@ def padded_device_independence() -> None:
 def check_all_kernels(A, B) -> dict:
     """Every kernel against its twin at each checked shape; the timed
     records of the main paths' shapes (K9-K11 on the padded forms of the
-    host systems ``A`` and ``B`` of [main] and [block-main])."""
-    # K1/K2 and K8 timed at [main]'s 160³; K3/K4, which only
+    host systems ``A`` and ``B`` of [main] and [block-main], f32, the
+    scalar records carrying the block ones under ``block``; then in f64,
+    48³ scalar and bs = 4 g = 24 block, and at bs = 5, g = 48, f32)."""
+    f32 = torch.float32
+    # K1/K2, K8 and K12 timed at [main]'s 160³; K3/K4, which only
     # [main-compressed] launches, at its 288³ (checked at 160³ as well)
-    shapes = check_kernels(MAIN_NPTS - 2, torch.float32, 1,
-                           timed_names=("dia_spmv", "tri_sweep",
-                                        "plain_factor_sweep", *ZERO_START))
-    err = {k: v["max_abs_err"] for k, v in shapes.items()}
-    big = check_kernels(COMPRESSED_G, torch.float32, 6,
-                        timed_names=("factor_u0", "factor_lower"))
+    shapes = check_family("band", band_operands(MAIN_NPTS - 2, f32, "cuda", 1),
+                          ("dia_spmv", "tri_sweep", "plain_factor_sweep",
+                           *ZERO_START))
+    big = check_family("band", band_operands(COMPRESSED_G, f32, "cuda", 6),
+                       ("factor_u0", "factor_lower"))
     torch.cuda.empty_cache()
-    for name in ("factor_u0", "factor_lower"):
-        shapes[name] = big[name]
-    for name, rec in shapes.items():
-        rec["max_abs_err"] = max(rec["max_abs_err"], err[name],
-                                 big[name]["max_abs_err"])
-    check_kernels(CHECK_NPTS - 2, torch.float64, 2)
-    shapes.update(check_block_kernels(BLOCK_G, BLOCK_BS, torch.float32, 3,
-                                      timed_run=True))
-    check_block_kernels(96, 5, torch.float32, 4, timed_run=False)
-    check_block_kernels(BLOCK_CHECK_G, BLOCK_BS, torch.float64, 5,
-                        timed_run=False)
+    for name, rec in big.items():
+        err = max(rec["max_abs_err"], shapes[name]["max_abs_err"])
+        if "ms" in rec:
+            shapes[name] = rec
+        shapes[name]["max_abs_err"] = err
+    check_family("band", band_operands(CHECK_NPTS - 2, torch.float64, "cuda",
+                                       2))
+    shapes.update(check_family("block", block_operands(
+        BLOCK_G, BLOCK_BS, f32, "cuda", 3), KERNELS))
+    check_family("block", block_operands(96, 5, f32, "cuda", 4))
+    check_family("block", block_operands(BLOCK_CHECK_G, BLOCK_BS,
+                                         torch.float64, "cuda", 5))
     torch.cuda.empty_cache()
     ex19_head()
-    shapes.update(check_all_padded_kernels(A, B))
-    return shapes
+    recs = check_family("padded", padded_operands(
+        padded_prep(A, "padded-main"), "cuda", 41), KERNELS)
+    torch.cuda.empty_cache()
+    brecs = check_family("padded", padded_operands(
+        padded_prep(B, "padded-block-main"), "cuda", 42), KERNELS)
+    torch.cuda.empty_cache()
+    A64, _, _ = poisson3d_system((CHECK_NPTS,) * 3)
+    B64, _ = block_system(BLOCK_CHECK_G, BLOCK_BS, np.float64, seed=43)
+    B5, _ = block_system(PADDED_BS5_G, 5, np.float32, seed=44)
+    for label, M in (("f64", A64), ("f64 block", B64), ("bs=5", B5)):
+        check_family("padded",
+                     padded_operands(padded_prep(M, label), "cuda", 45))
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share", "max_abs_err", "shape")
+    for name, rec in recs.items():
+        rec["block"] = {k: brecs[name][k] for k in keys}
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 brecs[name]["max_abs_err"])
+    torch.cuda.empty_cache()
+    return shapes | recs
 
 
 def seeded_poisson(npts, dtype):
@@ -2197,64 +2142,42 @@ def shard_twins(label: str, ds, s: int, seed: int) -> None:
         zc, yc = randn(ds.bs, nl), randn(ds.bs, nl)
         lo = [d for d, o in enumerate(offs) if o < 0]
         up = [d for d, o in enumerate(offs) if o > 0]
-        base = torch.where(mask[:, None], data, 0.0)
-        key = dia_pairs(offs)[d0]
-        fac = (tuple(o1 for _, _, o1 in key), base[d0],
-               torch.stack([base[dl] for dl, _, _ in key]),
-               torch.stack([shift_last(base[du], o1) for _, du, o1 in key]),
-               bstencil.block_inverse_ref(base[d0], mask[d0]))
-        cases = {
-            "bspmv": [(lambda: bstencil.bdia_spmv_stencil(offs, data, x),
-                       lambda: bstencil.bdia_spmv_ref(offs, data, x))],
-            "bfactor_dinv": [(lambda: bstencil.bdia_factor_stencil(*fac, True),
-                              lambda: bstencil.bdia_factor_ref(*fac, True))],
-            "bfactor_u0": [(lambda: bstencil.bdia_factor_stencil(*fac, False),
-                            lambda: bstencil.bdia_factor_ref(*fac, False))],
-            "block_inverse": [
-                (lambda: bstencil.bdia_block_inverse(vl[d0], mask[d0]),
-                 lambda: bstencil.block_inverse_ref(vl[d0], mask[d0]))],
-            "bdia_lower_sweep": [
-                (lambda: bstencil.bdia_lower_sweep_stencil(vl, offs, lo, zc,
-                                                           yc),
-                 lambda: bstencil.bdia_lower_sweep_ref(vl, offs, lo, zc, yc))],
-            "bdia_upper_sweep": [
-                (lambda: bstencil.bdia_upper_sweep_stencil(vl, di, offs, up,
-                                                           yc, zc),
-                 lambda: bstencil.bdia_upper_sweep_ref(vl, di, offs, up, yc,
-                                                       zc))]}
+        op = {"offsets": offs, "data": data, "x": x,
+              **block_factor_operands(
+                  offs, torch.where(mask[:, None], data, 0.0), mask)}
+        state = {"offsets": offs, "data": vl, "dinv": di, "lo": lo,
+                 "up": up, "z_cols": zc, "y_cols": yc}
+        cases = {name: KERNELS[name].cases(op)
+                 for name in ("bspmv", "bfactor_dinv", "bfactor_u0")}
+        cases["block_inverse"] = [twin_pair(
+            bstencil.bdia_block_inverse, bstencil.block_inverse_ref, vl[d0],
+            mask[d0])]
+        for name in ("bdia_lower_sweep", "bdia_upper_sweep"):
+            cases[name] = KERNELS[name].cases(state)[-1:]
     else:
         x, y, rhs = randn(nl), randn(nl), randn(nl)
-        lo, up = offs[:d0], offs[d0 + 1:]
         base = torch.where(mask, data, 0.0)
         plan = stencil.PlainSweepPlan(offs, dia_pairs(offs), d0, mask,
                                       prune=False, device=data.device)
+        state = {"offsets": offs, "data": vl, "dinv": di, "rhs": rhs, "y": y}
+        lo, low, _ = band_mode(state, False)
         cases = {
-            "dia_spmv": [(lambda: stencil.dia_spmv_stencil(offs, data, x),
-                          lambda: stencil.dia_spmv_ref(offs, data, x))],
-            "tri_sweep": [
-                (lambda: stencil.tri_sweep_stencil(lo, vl[:d0], rhs, y),
-                 lambda: stencil.tri_sweep_ref(lo, vl[:d0], rhs, y)),
-                (lambda: stencil.tri_sweep_stencil(up, vl[d0 + 1:], rhs, y,
-                                                   di),
-                 lambda: stencil.tri_sweep_ref(up, vl[d0 + 1:], rhs, y, di)),
-                (lambda: stencil.tri_sweep_stencil(lo, vl[:d0], rhs, y, di),
-                 lambda: stencil.tri_sweep_ref(lo, vl[:d0], rhs, y, di))],
-            "plain_factor_sweep": [
-                (lambda: stencil.plain_factor_sweep_stencil(plan, base, vl),
-                 lambda: stencil.plain_factor_sweep_ref(plan, base, vl))]}
+            "dia_spmv": KERNELS["dia_spmv"].cases(
+                {"offsets": offs, "data": data, "x": x}),
+            # the ILU(0) sweeps, then SGS's lower sweep (with dinv)
+            "tri_sweep": KERNELS["tri_sweep"].cases(state) + [twin_pair(
+                stencil.tri_sweep_stencil, stencil.tri_sweep_ref, lo, low,
+                rhs, y, di)],
+            "plain_factor_sweep": [twin_pair(
+                stencil.plain_factor_sweep_stencil,
+                stencil.plain_factor_sweep_ref, plan, base, vl)]}
     errs = {}
     for name, pairs in cases.items():
-        for kernel, twin in pairs:
-            got, want = kernel(), twin()
-            torch.cuda.synchronize(got.device)
-            if got.shape != want.shape:
-                fail(f"{label} shard {s} {name}: shape {tuple(got.shape)}, "
-                     f"twin {tuple(want.shape)}")
-            err = float((got - want).abs().max())
-            errs[name] = max(errs.get(name, 0.0), err)
-            if not torch.equal(got, want):
-                fail(f"{label} shard {s} {name}: not bitwise equal to its "
-                     f"twin (max abs err {err})")
+        errs[name] = compare(name, f"{label} shard {s}", pairs,
+                             data.dtype)["max_abs_err"]
+        if errs[name] != 0.0:
+            fail(f"{label} shard {s} {name}: not bitwise equal to its twin "
+                 f"(max abs err {errs[name]})")
         SHARD_ERR[name] = max(SHARD_ERR.get(name, 0.0), errs[name])
     print(f"[{label}] shard {s} of {ds.mesh.size}, {nl} rows: kernels "
           f"bitwise equal to their twins " + json.dumps(errs), flush=True)
@@ -2332,7 +2255,6 @@ def dist_main(A, b) -> dict:
     K3/K4; then the same solve on a one-shard mesh.  Returns the launches
     of both solves."""
     opts = dict(ILU44_OPTS, rtol=KRYLOV_RTOL)
-    nbuild, nsw = map(int, opts["blasted_async_sweeps"].split(","))
     total = dict.fromkeys(_cuda.launches, 0)
     recs = {}
     for nshards in (DIST_SHARDS, 1):
@@ -2340,11 +2262,9 @@ def dist_main(A, b) -> dict:
                               opts, card_mesh(nshards), KRYLOV_RELRES)
         if rec["route"] != "DistDiaSolver":
             fail(f"dist-main: took {rec['route']}")
-        it = rec["iters"]
-        expect_launches(f"dist-main {nshards}", rec["launches"],
-                        {"dia_spmv": nshards * (2 * it + 1),
-                         "tri_sweep": nshards * 2 * nsw * 2 * it,
-                         "plain_factor_sweep": nshards * nbuild})
+        expect_launches(f"dist-main {nshards}", rec["launches"], {
+            k: nshards * v for k, v in ilu_launches(
+                "dist-dia", *sweeps(opts), rec["iters"]).items()})
         for k, v in rec["launches"].items():
             total[k] += v
         recs[nshards] = rec
@@ -2371,27 +2291,18 @@ def dist_block_main(B, bb) -> dict:
     if rec["route"] != "DistBlockDiaSolver" or not ds.compressed:
         fail(f"dist-block-main: took {rec['route']}, compressed "
              f"{getattr(ds, 'compressed', None)}")
-    nbuild, napply = map(int, ILU44_OPTS["blasted_async_sweeps"].split(","))
-    P, it = DIST_SHARDS, rec["iters"]
-    expect_launches("dist-block-main", rec["launches"],
-                    {"bspmv": P * (2 * it + 1), "bfactor_dinv": P * (nbuild - 1),
-                     "bfactor_u0": P, "block_inverse": 2 * P,
-                     "bdia_lower_sweep": P * 2 * napply * it,
-                     "bdia_upper_sweep": P * 2 * napply * it})
+    expect_launches("dist-block-main", rec["launches"], {
+        k: DIST_SHARDS * v for k, v in ilu_launches(
+            "dist-bdia", *sweeps(ILU44_OPTS), rec["iters"]).items()})
     shard_twins("dist-block-main", ds, 0, seed=32)
     del ds
     torch.cuda.empty_cache()
     return rec["launches"]
 
 
-MODE_KERNELS = {"banded-dia": {"dia_spmv": None, "tri_sweep": None,
-                               "plain_factor_sweep": None},
-                "mesh-2d": {"dia_spmv": None, "tri_sweep": None,
-                            "plain_factor_sweep": None},
-                "block-dia": {"bspmv": None, "bfactor_dinv": None,
-                              "bfactor_u0": None, "block_inverse": None,
-                              "bdia_lower_sweep": None,
-                              "bdia_upper_sweep": None}}
+MODE_KERNELS = {"banded-dia": route_kernels("dist-dia"),
+                "mesh-2d": route_kernels("dist-dia"),
+                "block-dia": route_kernels("dist-bdia")}
 
 
 def mode_padded_counts(case, ctx, iters: int) -> dict:
@@ -2406,11 +2317,8 @@ def mode_padded_counts(case, ctx, iters: int) -> dict:
     ds = ctx.prec
     P = ds.mesh.size
     if case.name in ("ghost-csr", "bsr-allgather"):
-        nbuild, napply = map(
-            int, case.options["blasted_async_sweeps"].split(","))
-        sweeps = P * 2 * napply * iters
-        return {"padded_lower_sweep": sweeps, "padded_upper_sweep": sweeps,
-                "padded_factor_sweep": P * nbuild}
+        return {k: P * v for k, v in ilu_launches(
+            "padded", *sweeps(case.options), iters, spmvs=0).items() if v}
     if case.name == "amg":
         s = ds.settings
         per_apply = (s.npre + s.npost) * len(ds.levels) \
@@ -2620,8 +2528,8 @@ def main_compressed() -> dict:
             expect_launches("main-compressed factor", fac,
                             {"factor_u0": 4, "factor_lower": 1})
             expect_launches("main-compressed solve", sol,
-                            {"dia_spmv": 2 * info.iters + 1,
-                             **apply_counts(opts, info.iters)})
+                            ilu_launches("dia", *sweeps(opts), info.iters,
+                                         factor=False))
             for k in total:
                 total[k] = fac[k] + sol[k]
             relres = card_relres(D, b, x)
@@ -2722,8 +2630,6 @@ def newton_case(label: str, M, b, opts: dict, want_factor: dict) -> dict:
     del ilu0
     relres0 = card_relres(D0, bt, x)
     relres = card_relres(D, bt, x2)
-    block = getattr(D, "bs", 1) > 1
-    spmv_name = "bspmv" if block else "dia_spmv"
     rec = {"fact_init": opts["blasted_async_fact_init_type"],
            "iters_before": info.iters, "iters_after": info2.iters,
            "relres_true_before": relres0, "relres_true_after": relres,
@@ -2742,10 +2648,9 @@ def newton_case(label: str, M, b, opts: dict, want_factor: dict) -> dict:
     if not refactored or fresh_equal is False:
         fail(f"{label}: the factor after the update is stale: {rec}")
     expect_launches(f"{label} factor", fac, want_factor)
-    expect_launches(f"{label} solve", sol,
-                    {spmv_name: 2 * info2.iters + 1,
-                     **(block_apply_counts if block else apply_counts)(
-                         opts, info2.iters)})
+    expect_launches(f"{label} solve", sol, ilu_launches(
+        "bdia" if getattr(D, "bs", 1) > 1 else "dia", *sweeps(opts),
+        info2.iters, factor=False))
     del ctx
     return {k: fac[k] + sol[k] for k in fac}
 
@@ -2758,14 +2663,13 @@ def newton(A, b, B, bb) -> dict:
     is below JAX's gate: plain sweeps); the block factor runs K6 only with
     ORIGINAL; the block solves' applies run K7.  Returns the launches."""
     total = dict.fromkeys(_cuda.launches, 0)
-    nbuild = int(NEWTON_OPTS["blasted_async_sweeps"].split(",")[0])
+    nbuild = sweeps(NEWTON_OPTS)[0]
     cases = [
         ("scalar original", A, b, "init_original",
-         {"plain_factor_sweep": nbuild}),
-        ("scalar none", A, b, "init_none", {"plain_factor_sweep": nbuild}),
+         ILU_ROUTES["dia"].factor(nbuild)),
+        ("scalar none", A, b, "init_none", ILU_ROUTES["dia"].factor(nbuild)),
         ("block original", B, bb, "init_original",
-         {"bfactor_dinv": nbuild - 1, "bfactor_u0": 1,
-          "block_inverse": None}),
+         ILU_ROUTES["bdia"].factor(nbuild)),
         ("block none", B, bb, "init_none", {"block_inverse": None}),
     ]
     for label, M, rhs, init, want in cases:
@@ -2813,10 +2717,9 @@ def mixed(A, b, main_rec: dict) -> dict:
     if ctx.prec.state.ilu.dtype != torch.bfloat16:
         fail(f"mixed: the factor is stored in {ctx.prec.state.ilu.dtype}")
     # the factor is computed in float32 (K8) and stored in bfloat16
-    nbuild = int(MAIN_OPTS["blasted_async_sweeps"].split(",")[0])
     expect_launches("mixed", rec["launches"],
-                    {"dia_spmv": 2 * rec["iters"] + 1,
-                     "plain_factor_sweep": nbuild})
+                    ilu_launches("dia", *sweeps(opts), rec["iters"],
+                                 mixed=True))
     print("[mixed] " + json.dumps({
         "iters_mixed_vs_main": [rec["iters"], main_rec["iters"]],
         "solve_ms_steady_mixed_vs_main": [1e3 * rec["solve_s"],
@@ -2952,69 +2855,41 @@ def mc_kernel(mesh) -> dict:
     cuda:2, must be counted on card 2; a call whose operands lie on two
     cards, and a launch of operands that are not on the current card, must
     raise.  Returns per-kernel records for the kernels line."""
-    g, dtype = MAIN_NPTS - 2, torch.float32
-    n, nb, isz = g ** 3, BLOCK_G ** 3, dtype.itemsize
+    dtype = torch.float32
     A, _, _ = main_system()
     B, _, _ = block_main_system()
-    preps = (padded_prep(A), padded_prep(B))
+    preps = (padded_prep(A, "padded-main"),
+             padded_prep(B, "padded-block-main"))
     del A, B
     out = {}
     for dev in mesh.devices:
+        first = dev == mesh.first
         _cuda.reset_launches()
-        op = band_operands(g, dtype, dev, seed=1)
-        bop = block_operands(BLOCK_G, BLOCK_BS, dtype, dev, seed=3)
-        pop, pbop = (padded_operands(p, dev, seed=41) for p in preps)
-        npair = len(bop["pair_offs"])
-        scalar = kernel_cases(op)
-        pcases = padded_kernel_cases(pop)
-        cases = {**scalar, **block_kernel_cases(bop), **pcases}
-        for name, pairs in padded_kernel_cases(pbop).items():
-            rec = compare(name, f"{dev} block", pairs, dtype)
-            if rec["max_abs_err"] != 0.0:
-                fail(f"[mc-kernel] {name} bs={BLOCK_BS} on {dev}: not "
-                     f"bitwise equal to its twin ({rec})")
-        for name, pairs in cases.items():
-            rec = compare(name, f"{dev}", pairs, dtype)
-            if rec["max_abs_err"] != 0.0:
-                fail(f"[mc-kernel] {name} on {dev}: not bitwise equal to "
-                     f"its twin ({rec})")
-            kernel, twin = pairs[-1]
-            with torch.cuda.device(dev):
-                if dev == mesh.first:
-                    if name in pcases:
-                        timed(rec, name, kernel, twin,
-                              *padded_work(name, pop, isz), dtype,
-                              padded_library(name, pop))
-                        rec["shape"] = (f"padded-main n={n} "
-                                        f"W={pop['width']} float32")
-                    elif name in scalar:
-                        timed(rec, name, kernel, twin,
-                              *scalar_work(name, n, isz),
-                              dtype, scalar_library(name, op))
-                        rec["shape"] = f"g={g} n={n} float32"
-                    else:
-                        timed(rec, name, kernel, twin,
-                              *block_work(name, nb, BLOCK_BS, npair, isz),
-                              dtype, block_library_of(name, bop))
-                        rec["shape"] = (f"bs={BLOCK_BS} g={BLOCK_G} nb={nb} "
-                                        "float32")
-                    if name == "tri_sweep":
-                        lower_timed(rec, op, pairs[0][0], n, dtype)
-                    rec["ms_by_card"] = {}
-                    out[name] = rec
-                ms = rec["ms"] if dev == mesh.first else cuda_ms(kernel)[0]
-            out[name]["ms_by_card"][dev.index] = ms
-            out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
-                                           rec["max_abs_err"])
+        ops = {"band": band_operands(MAIN_NPTS - 2, dtype, dev, seed=1),
+               "block": block_operands(BLOCK_G, BLOCK_BS, dtype, dev, seed=3),
+               "padded": padded_operands(preps[0], dev, seed=41)}
+        with torch.cuda.device(dev):
+            check_family("padded", padded_operands(preps[1], dev, seed=41),
+                         bitwise=True, say=None)
+            for family, op in ops.items():
+                recs = check_family(family, op, KERNELS if first else (),
+                                    bitwise=True, say=None)
+                for name, rec in recs.items():
+                    if first:
+                        out[name] = dict(rec, ms_by_card={})
+                    out[name]["ms_by_card"][dev.index] = rec["ms"] if first \
+                        else cuda_ms(KERNELS[name].cases(op)[-1][0])[0]
+                    out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                                   rec["max_abs_err"])
         by_card = {k: dict(v) for k, v in _cuda.launches_by_device.items()
                    if v}
-        if set(by_card) != set(cases) or \
+        if set(by_card) != set(KERNELS) or \
                 any(set(v) != {dev.index} for v in by_card.values()):
             fail(f"[mc-kernel] {dev}: launches by card {by_card}")
-        print(f"[mc-kernel] {dev}: all {len(cases)} kernels bitwise equal to "
-              f"their twins, launches by card {json.dumps(by_card)}",
+        print(f"[mc-kernel] {dev}: all {len(KERNELS)} kernels bitwise equal "
+              f"to their twins, launches by card {json.dumps(by_card)}",
               flush=True)
-        del op, bop, pop, pbop, scalar, pcases, cases
+        del ops
         torch.cuda.empty_cache()
     for name, rec in out.items():
         print(f"[mc-kernel] {name}: " + json.dumps(rec), flush=True)
@@ -3120,12 +2995,9 @@ def mc_dist_main(mesh, A, b) -> dict:
     over four shards of cuda:0 and over one shard: each card launches
     K1 = 2·it + 1, K2 = 16·it and K8 = 4 per shard it holds, no K3/K4."""
     opts = dict(ILU44_OPTS, rtol=KRYLOV_RTOL)
-    nbuild, nsw = map(int, opts["blasted_async_sweeps"].split(","))
     return mc_solves("mc-dist-main", A, b, opts, mesh, KRYLOV_RELRES,
                      "DistDiaSolver",
-                     lambda it: {"dia_spmv": 2 * it + 1,
-                                 "tri_sweep": 2 * nsw * 2 * it,
-                                 "plain_factor_sweep": nbuild},
+                     lambda it: ilu_launches("dist-dia", *sweeps(opts), it),
                      one_shard=True, seed=31)
 
 
@@ -3135,14 +3007,10 @@ def mc_dist_block_main(mesh, B, bb) -> dict:
     cards and over four shards of cuda:0: each card launches K5 = 2·it + 1,
     three K6 Dinv sweeps, one K6 U0 sweep, two block inverses and
     K7 = 8·it in each mode per shard it holds."""
-    nbuild, napply = map(int, ILU44_OPTS["blasted_async_sweeps"].split(","))
     return mc_solves("mc-dist-block-main", B, bb, ILU44_OPTS, mesh,
                      MAIN_RELRES, "DistBlockDiaSolver",
-                     lambda it: {"bspmv": 2 * it + 1,
-                                 "bfactor_dinv": nbuild - 1,
-                                 "bfactor_u0": 1, "block_inverse": 2,
-                                 "bdia_lower_sweep": 2 * napply * it,
-                                 "bdia_upper_sweep": 2 * napply * it},
+                     lambda it: ilu_launches("dist-bdia", *sweeps(ILU44_OPTS),
+                                             it),
                      one_shard=False, seed=32)
 
 
@@ -3155,7 +3023,6 @@ def mc_weak(mesh, one_shard: dict) -> dict:
     solve and the ms per iteration against [mc-dist-main]'s one-shard
     run."""
     opts = dict(ILU44_OPTS, rtol=KRYLOV_RTOL)
-    nbuild, nsw = map(int, opts["blasted_async_sweeps"].split(","))
     t0 = time.perf_counter()
     A, b = seeded_poisson(MC_WEAK_NPTS, np.float32)
     t_host = time.perf_counter() - t0
@@ -3168,9 +3035,7 @@ def mc_weak(mesh, one_shard: dict) -> dict:
         fail(f"mc-weak: route {rec['route']}, halo {ds.halo}, {ds.nl} rows "
              "a card")
     it = rec["iters"]
-    want = per_card(mesh, {"dia_spmv": 2 * it + 1,
-                           "tri_sweep": 2 * nsw * 2 * it,
-                           "plain_factor_sweep": nbuild})
+    want = per_card(mesh, ilu_launches("dist-dia", *sweeps(opts), it))
     if rec["launches_by_card"] != want:
         fail(f"mc-weak: launches by card {rec['launches_by_card']}, "
              f"expected {want}")
@@ -3213,8 +3078,8 @@ def mc_dist_modes(mesh) -> dict:
             (_, x, info, ctx), = dryrun_multichip(devs, [case])
             ctx.prec.mesh.synchronize()
             want = mode_padded_counts(case, ctx, info.iters)
-            expect_padded(f"mc-dist-modes {case.name} {key}",
-                          dict(_cuda.launches), want)
+            expect_launches(f"mc-dist-modes {case.name} {key}",
+                            dict(_cuda.launches), want, only=PADDED)
             got[key] = {
                 "x": x.cpu(), "iters": info.iters, "padded_want": want,
                 "route": type(ctx.prec).__name__,
@@ -3235,18 +3100,12 @@ def mc_dist_modes(mesh) -> dict:
         print(f"[mc-dist-modes] [{case.name}] " + json.dumps(rec), flush=True)
         if c["route"] != o["route"] or c["iters"] != o["iters"]:
             fail(f"mc-dist-modes {case.name}: {rec}")
-        if case.name in MODE_KERNELS:
-            if not bitwise:
-                fail(f"mc-dist-modes {case.name}: x not bitwise equal over "
-                     f"the cards and over one card ({rec})")
-            for k in MODE_KERNELS[case.name]:
-                if set(c["launches_by_card"].get(k, {})) != \
-                        {d.index for d in mesh.devices}:
-                    fail(f"mc-dist-modes {case.name}: {k} not launched on "
-                         f"every card ({c['launches_by_card']})")
-        elif not bitwise and rel > MC_MODES_XTOL:
+        if case.name in MODE_KERNELS and not bitwise:
+            fail(f"mc-dist-modes {case.name}: x not bitwise equal over "
+                 f"the cards and over one card ({rec})")
+        if not bitwise and rel > MC_MODES_XTOL:
             fail(f"mc-dist-modes {case.name}: x differs by {rel} ({rec})")
-        for k in c["padded_want"]:
+        for k in (*MODE_KERNELS.get(case.name, ()), *c["padded_want"]):
             if set(c["launches_by_card"].get(k, {})) != \
                     {d.index for d in mesh.devices}:
                 fail(f"mc-dist-modes {case.name}: {k} not launched on "
@@ -3305,33 +3164,16 @@ def main_cards(ncards: int) -> int:
 
     # the four-card solves are the main path: their launches, by card (the
     # padded kernels': the general route's and AMG's of [mc-dist-modes])
-    by_card = {name: {} for name in REPLACES}
+    by_card = {name: {} for name in KERNELS}
     for rec in (main_recs["cards"], block_recs["cards"], weak,
                 {"launches_by_card": modes}):
         for name, cards in rec["launches_by_card"].items():
             for i, v in cards.items():
                 by_card[name][i] = by_card[name].get(i, 0) + v
-    for name, err in SHARD_ERR.items():
-        shapes[name]["max_abs_err"] = max(shapes[name]["max_abs_err"], err)
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "ms_by_card", "shape")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"blasted_tpu_torch/csrc/{_cuda.KERNEL_SOURCES[name]}",
-         "replaces": REPLACES[name],
-         "launches": sum(by_card[name].values()),
-         "launches_by_card": by_card[name],
-         **{k: shapes[name][k] for k in keys},
-         **{k: shapes[name][k] for k in ("library_of", "lower_ms",
-                                         "lower_bound_ms")
-            if k in shapes[name]}}
-        for name in REPLACES]}))
-    for line in smi:
-        print(line)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return finish(shapes, {name: {"launches": sum(v.values()),
+                                  "launches_by_card": v}
+                           for name, v in by_card.items()},
+                  ("ms_by_card",), smi, kind)
 
 
 def bench_phase(card: dict) -> None:
@@ -3375,6 +3217,31 @@ def bench_phase(card: dict) -> None:
             or not 0.0 < line["value"] <= bench_common.MAX_FRACTION:
         fail(f"bench: summary line {line}")
     print(f"[bench] line: {json.dumps(line)}", flush=True)
+
+
+def finish(shapes: dict, launches: dict, keys, smi: list, kind) -> int:
+    """The last lines: the kernels line (each kernel's entry, its
+    ``launches`` fields and its record, with the shard checks' errors),
+    the ``nvidia-smi`` lines and ``{"ok": true, ...}``."""
+    for name, err in SHARD_ERR.items():
+        shapes[name]["max_abs_err"] = max(shapes[name]["max_abs_err"], err)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", *keys)
+    optional = ("shape", "library_of", "lower_ms", "lower_bound_ms", "block")
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"blasted_tpu_torch/csrc/{_cuda.KERNEL_SOURCES[name]}",
+         "replaces": k.replaces, **launches[name],
+         **{key: shapes[name][key] for key in keys},
+         **{key: shapes[name][key] for key in optional
+            if key in shapes[name]}}
+        for name, k in KERNELS.items()]}))
+    for line in smi:
+        print(line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def phase(name: str, fn, *args, mesh=None):
@@ -3475,33 +3342,11 @@ def main(argv=None) -> int:
     phase("precinfo", precinfo_phase)
     phase("stack-device-independence", stack_device_independence)
     phase("refined", refined)
-    for name, err in SHARD_ERR.items():
-        shapes[name]["max_abs_err"] = max(shapes[name]["max_abs_err"], err)
-    counts = {name: scalar[name] + block[name] + krylov_counts[name]
-              + amg_counts[name] + dist_counts[name]
-              + dist_block_counts[name] + mixed_counts[name]
-              + compressed_counts[name] + newton_counts[name]
-              + padded_rec["launches"][name]
-              + padded_block_rec["launches"][name]
-              for name in scalar}
-
-    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"blasted_tpu_torch/csrc/{_cuda.KERNEL_SOURCES[name]}",
-         "replaces": REPLACES[name],
-         **{k: counts[name] if k == "launches" else shapes[name][k]
-            for k in keys},
-         **{k: shapes[name][k] for k in ("shape", "library_of", "lower_ms",
-                                         "lower_bound_ms", "block")
-            if k in shapes[name]}}
-        for name in REPLACES]}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
-    return 0
+    runs = (scalar, block, krylov_counts, amg_counts, dist_counts,
+            dist_block_counts, mixed_counts, compressed_counts, newton_counts,
+            padded_rec["launches"], padded_block_rec["launches"])
+    return finish(shapes, {name: {"launches": sum(c[name] for c in runs)}
+                           for name in KERNELS}, (), [smi], kind)
 
 
 if __name__ == "__main__":

@@ -366,8 +366,9 @@ def test_block_zero_start_engages_only_from_zero_with_two_sweeps(route):
 def test_solve_runs_k13_and_k7_as_chip_smoke_counts(nsw, monkeypatch):
     """A BiCGSTAB solve with block ILU(0) from zero calls K13's wrapper
     once per triangle an apply and K7's ``nsw − 2`` times a triangle:
-    ``chip_smoke.py``'s ``block_apply_counts``, which the card's launches
-    are held to."""
+    ``chip_smoke.py``'s launch rule ``ilu_launches``, which the card's
+    launches are held to."""
+    import chip_smoke
     from blasted_tpu_torch.ops import bdia, bstencil
     from blasted_tpu_torch.precond import bdia_ilu0
 
@@ -399,8 +400,5 @@ def test_solve_runs_k13_and_k7_as_chip_smoke_counts(nsw, monkeypatch):
                                   "rtol": 1e-8, "maxiter": 200},
                            device="cpu")
     assert info.converged
-    applies = 2 * info.iters
-    assert calls == {"bdia_lower_sweep": (nsw - 2) * applies,
-                     "bdia_upper_sweep": (nsw - 2) * applies,
-                     "bdia_head_lower_sweep": applies,
-                     "bdia_head_upper_sweep": applies}
+    want = chip_smoke.ilu_launches("bdia", 4, nsw, info.iters)
+    assert calls == {k: want[k] for k in calls}

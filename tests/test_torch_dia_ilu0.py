@@ -346,7 +346,8 @@ def test_non_finite_factor_fails_as_the_k2_chain_does(where, value):
 def test_solve_runs_k12_and_k2_as_chip_smoke_counts(nsw, monkeypatch):
     """A BiCGSTAB solve with ILU(0) from zero calls K12's wrapper once per
     triangle an apply and K2's ``nsw − 2`` times: ``chip_smoke.py``'s
-    ``apply_counts``, which the card's launches are held to."""
+    launch rule ``ilu_launches``, which the card's launches are held to."""
+    import chip_smoke
     from blasted_tpu_torch import solve
     from blasted_tpu_torch.ops import sweeps
     from blasted_tpu_torch.precond import dia_ilu0
@@ -375,7 +376,5 @@ def test_solve_runs_k12_and_k2_as_chip_smoke_counts(nsw, monkeypatch):
                               "blasted_async_sweeps": f"4,{nsw}",
                               "rtol": 1e-8, "maxiter": 200}, device="cpu")
     assert info.converged
-    applies = 2 * info.iters
-    assert calls == {"tri_sweep": 2 * (nsw - 2) * applies,
-                     "zero_start_lower_sweep": applies,
-                     "zero_start_upper_sweep": applies}
+    want = chip_smoke.ilu_launches("dia", 4, nsw, info.iters)
+    assert calls == {k: want[k] for k in calls}
