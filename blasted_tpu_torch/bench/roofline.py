@@ -136,7 +136,9 @@ _BLOCK_KERNELS = ("bspmv", "bfactor_dinv", "bfactor_u0", "block_inverse",
 REQUIRED = {"scalar": ("dia_spmv", "tri_sweep", "factor_u0", "factor_lower"),
             "block4": _BLOCK_KERNELS, "block5": _BLOCK_KERNELS,
             "csr": ("padded_spmv",),
-            "solve": ("dia_spmv", "tri_sweep", "plain_factor_sweep")}
+            "solve": ("dia_spmv", "tri_sweep", "plain_factor_sweep",
+                      "krylov_p_update", "krylov_s_update",
+                      "krylov_xr_update")}
 ISZ = 4                       # float32
 SOLVE_BUILD_SWEEPS = 8        # bench.py:645
 # the true residual may reach 1.1·rtol in float64 and 7.8·rtol in float32:

@@ -1,7 +1,7 @@
 // Helpers shared by the stencil kernels of dia_stencil.cu (K1-K4) and
 // bdia_stencil.cu (K5, K6 and the block inverse): the by-value offset table,
 // the zero-outside-[0, n) shifted read, the exact 0 -> 1 guard, and the
-// grid-stride launch shape.
+// grid-stride launch shape (also that of krylov_update.cu's K14).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -75,13 +75,18 @@ _SIGNATURES = {
                      _P),
     "bt_padded_factor_sweep": (_I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I64, _P),
+    "bt_krylov_p_update": (_I32, _P, _P, _P, _P, _P, _P, _I64, _P),
+    "bt_krylov_s_update": (_I32, _P, _P, _P, _P, _I64, _P),
+    "bt_krylov_xr_update": (_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I64, _P),
 }
 
 #: The source under ``csrc/`` of each kernel, by the name its launches are
 #: counted under (K6 by mode: the Dinv-emitting sweeps and the U0-emitting
 #: final sweep; K7, K10, the zero-start sweep K12 and the block head sweep
 #: K13 by mode: the unit-lower and the upper apply sweep; K9-K11 are the
-#: padded path's).
+#: padded path's; K14, BiCGSTAB's fused vector updates, by pass: p, s, and
+#: x and r).
 KERNEL_SOURCES = {
     "dia_spmv": "dia_stencil.cu", "tri_sweep": "dia_stencil.cu",
     "zero_start_lower_sweep": "dia_stencil.cu",
@@ -96,6 +101,9 @@ KERNEL_SOURCES = {
     "plain_factor_sweep": "dia_stencil.cu",
     "padded_spmv": "padded.cu", "padded_lower_sweep": "padded.cu",
     "padded_upper_sweep": "padded.cu", "padded_factor_sweep": "padded.cu",
+    "krylov_p_update": "krylov_update.cu",
+    "krylov_s_update": "krylov_update.cu",
+    "krylov_xr_update": "krylov_update.cu",
 }
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.

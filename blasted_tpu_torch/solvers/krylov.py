@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops.blas1 import dot, guard_zero, norm2, where, zeros_like
+from ..ops.krylov_update import p_update, s_update, xr_update
 from ..utils.profiling import annotate
 
 __all__ = ["SolveInfo", "richardson", "bicgstab", "gcr", "cg", "gmres"]
@@ -100,7 +101,9 @@ def bicgstab(amat: Callable, prec: Callable, b: torch.Tensor,
     """Right-preconditioned BiCGSTAB, same update sequence and iteration
     count (iters = steps taken, the breakdown step included) as the
     reference (tests/solvers.cpp BiCGSTAB::solve, :140-244), with breakdown
-    guards on rho, rhat·v and t·t."""
+    guards on rho, rhat·v and t·t.  The vector updates of an iteration (p,
+    s, and x with r) are ``ops/krylov_update.py``'s three passes: on a CUDA
+    card the fused kernels K14, elsewhere the same torch expressions."""
     dt = b.dtype
     eps, tiny = _finfo(b)
 
@@ -132,14 +135,14 @@ def bicgstab(amat: Callable, prec: Callable, b: torch.Tensor,
             # a zero denominator is a breakdown: guard_zero keeps the
             # quotient finite and brk discards the step
             beta = rho * alpha / guard_zero(rhoold * omega)
-            p = r + beta * p - beta * omega * v
+            p = p_update(r, p, v, beta, beta * omega)
             y = prec(p)
             v = amat(y)
             rv = dot(rhat, v)
             brk = brk | (torch.abs(rv)
                          <= eps * eps * nrhat * norm2(v) + 100 * tiny)
             alpha = rho / guard_zero(rv)
-            rs = r - alpha * v                   # 's' of the algorithm
+            rs = s_update(r, v, alpha)           # 's' of the algorithm
             z = prec(rs)
             t = amat(z)
             tt = dot(t, t)
@@ -148,13 +151,9 @@ def bicgstab(amat: Callable, prec: Callable, b: torch.Tensor,
             lucky = tt <= 100 * tiny
             omega = torch.where(lucky, torch.zeros_like(tt),
                                 dot(t, rs) / guard_zero(tt))
-            x_new = x + alpha * y + omega * z
-            r_new = rs - omega * t
-            resnorm_new = norm2(r_new)
             # on breakdown keep the previous finite iterate
-            x = where(brk, x, x_new)
-            r = where(brk, r, r_new)
-            resnorm = torch.where(brk, resnorm, resnorm_new)
+            x, r = xr_update(x, r, y, z, rs, t, alpha, omega, brk)
+            resnorm = torch.where(brk, resnorm, norm2(r))
             conv = resnorm / bnorm < tol
             breakdown = breakdown | brk | (lucky & ~conv)
             rhoold = rho

@@ -55,7 +55,10 @@ ends with); once per apply of a DIA ILU(0) preconditioner
 zero-start sweep K12); once per apply of a block-DIA ILU(0)
 preconditioner (``precond/bdia_ilu0.py``), ``precond.block_apply`` (every
 apply) and ``precond.block_zero_start`` (the applies whose chains start
-with the block head sweep K13).
+with the block head sweep K13); once per BiCGSTAB iteration whose vector
+updates ran as the fused kernels K14 (``ops/krylov_update.py``, counted at
+the x-and-r pass), ``krylov.fused_update``, read over the ``krylov.iter``
+spans of the same iterations.
 Kernel launches are counted, and their host time summed, in
 ``ops/_cuda.py`` (``launches``, ``launch_ns``), not here.
 

@@ -7,13 +7,14 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 It builds the CUDA kernels from ``blasted_tpu_torch/csrc`` (K1-K4, K8 and
 K12 of the scalar banded path; K5-K7, the block inverse and K13 of the
-point-block path; K9-K11 of the general padded path) and holds each
+point-block path; K9-K11 of the general padded path; K14, BiCGSTAB's three
+fused vector updates, on every path) and holds each
 against its plain PyTorch twin on the card through one table,
 ``KERNELS``: one entry per launch name of ``ops/_cuda.py`` with the family
 of operands it runs on, its (kernel, twin) cases, its byte and operation
 model, its library yardstick (the one PyTorch call computing the same
 function, or why there is none), whether it must equal its twin to the bit
-(K9-K13) and, for K12 and K13, the two launches from zero it replaces
+(K9-K14) and, for K12 and K13, the two launches from zero it replaces
 (bitwise after ``+ 0.0``).  One loop (``check_family``) runs a family's
 entries on one operand set, and ``check_all_kernels`` runs it at the
 scalar main path's shapes (the npts=162 band in float32, timed; K3/K4
@@ -21,7 +22,10 @@ timed at 288³) and at npts=48 in float64; at bs=4 on the g=128 block band
 in float32 (the block main path's shapes, timed), at bs=5, g=96 and at
 bs=4, g=24 in float64; ``[ex19-head]`` K7 and K13 at the benchmark's ex19
 shape (bs=4, float64, the 5-point block star of a 1024² grid), timed, and
-an apply's two chains folded against K7's chains from zero; K9-K11 on the
+an apply's two chains folded against K7's chains from zero; K14 at the
+benchmark's vector lengths (Bratu's n = 16,777,216 in float32 and ex19's
+4,194,304 in float64, timed beside the torch expressions each pass
+replaces) and one value into its buffer at an odd length; K9-K11 on the
 padded forms of the two main systems in float32 (timed), of the 48³
 Poisson matrix and the bs=4 g=24 block system in float64 and of a bs=5
 g=48 block system.  A timed record carries the kernel's, its twin's and
@@ -109,7 +113,8 @@ Then the distributed solvers (``blasted_tpu_torch.parallel``), on four
 subdomains of the one card (``make_mesh(devices=["cuda:0"] * 4)``), which
 add no kernel: the banded ones launch K1/K2/K8 or K5/K6/K7/the inverse
 once per shard, the general ones K10/K11 in each shard's padded ILU(0)
-and AMG K9 in its shard-local SGS smoothers.  ``[dist-block-main]`` solves the [block-main] system over four
+and AMG K9 in its shard-local SGS smoothers, and BiCGSTAB K14 on each
+shard.  ``[dist-block-main]`` solves the [block-main] system over four
 shards (the compressed block factor: K6 and two inverses per shard, K5
 once per shard per SpMV); ``[dist-main]`` the [krylov-main] system with
 ILU(0) 4,4 over four shards and over one (K1 once per shard per SpMV, K2
@@ -117,7 +122,7 @@ eight times per shard per apply, K8 four times per shard per factor, no
 K3/K4), with steady factor and solve times; ``[dist-modes]`` the six
 modes of the distributed dry run (``parallel/dryrun.py``), the banded ones at full width and the others
 cut (the reasons printed), each asserting its route and its kernels
-(K9-K11 exactly, ``mode_padded_counts``), and one distributed AMG cycle
+(K9-K11 and K14 exactly, ``mode_counts``), and one distributed AMG cycle
 under [tf32]; ``[dist-device-independence]``
 each mode, each banded pc_type and one R3 type (sai, the general route)
 in float64 on four card shards and four CPU shards: the route, the same
@@ -205,7 +210,13 @@ from blasted_tpu_torch.config import (
     PrecType,
 )
 from blasted_tpu_torch.factory import create_preconditioner, to_device_matrix
-from blasted_tpu_torch.ops import _cuda, bstencil, padded, stencil
+from blasted_tpu_torch.ops import (
+    _cuda,
+    bstencil,
+    krylov_update,
+    padded,
+    stencil,
+)
 from blasted_tpu_torch.ops.spmv import bspmv, spmv
 from blasted_tpu_torch.ops.sweeps import (
     invert_diag_blocks,
@@ -283,6 +294,12 @@ BLOCK_HEAD = ("bdia_head_lower_sweep", "bdia_head_upper_sweep")
 # [ex19-head]: ex19's block band (PETSc SNES ex19 at 1024², 4 dof, f64),
 # the 5-point block star of the benchmark's ex19 cell
 EX19_NX, EX19_BS = 1024, 4
+# K14's three passes: BiCGSTAB's fused vector updates, each launched once an
+# iteration of a solve (``bicgstab_updates``)
+KRYLOV_UPDATE = ("krylov_p_update", "krylov_s_update", "krylov_xr_update")
+# [kernel]: K14 at the benchmark's vector lengths (Bratu's 256³ in f32, timed;
+# ex19's 1024² × 4 in f64), and unaligned at an odd length
+BRATU_N, EX19_N, ODD_N = 256 ** 3, EX19_NX ** 2 * EX19_BS, 4_096_003
 AMG_OPTS = {"blasted_pc_type": "amg", "blasted_amg_group": 4,
             "blasted_amg_cycle": "v", "blasted_amg_sub_pc_type": "sgs"}
 CUT_NPTS = 66            # [level-sgs] and scalar [sai]: 64³ = 262,144
@@ -473,6 +490,26 @@ def star_operands(nx: int, bs: int, dtype, device, seed: int) -> dict:
         f"ex19 bs={bs} nx={nx} nb={nb} {str(dtype)[6:]}")
 
 
+def vector_operands(n: int, dtype, device, seed: int, offset: int = 0):
+    """Operands of K14 over (n,) vectors: random r, p, v, x, y, z, s and t,
+    each ``offset`` values into its own buffer (1: not 16-byte aligned, so
+    each pass moves one value a step), and the 0-d scalars beta, alpha,
+    omega, bo = beta·omega, a zero (omega at the lucky half-step) and the
+    breakdown flag ``brk`` false and true."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    op = {k: torch.randn(n + offset, generator=gen, dtype=dtype,
+                         device=device)[offset:]
+          for k in ("r", "p", "v", "x", "y", "z", "s", "t")}
+    op.update({k: torch.randn((), generator=gen, dtype=dtype, device=device)
+               for k in ("beta", "alpha", "omega")})
+    op["bo"] = op["beta"] * op["omega"]
+    op["zero"] = torch.zeros((), dtype=dtype, device=device)
+    op["brk"] = {f: torch.tensor(f, device=device) for f in (False, True)}
+    op.update(n=n, dtype=dtype, shape=f"n={n} {str(dtype)[6:]}"
+              + (f" offset={offset}" if offset else ""))
+    return op
+
+
 def csr_of_band(offsets, data, mask, lower_only=False):
     """The band as a CUDA sparse CSR tensor (the library yardstick's
     operand): the structural entries of ``data`` (k, n), row by row."""
@@ -543,11 +580,16 @@ def cuda_ms(fn) -> tuple[float, float]:
     return statistics.median(dev), statistics.median(host)
 
 
+def joined(out) -> torch.Tensor:
+    """A call's output as one tensor (K14's x-and-r pass returns two)."""
+    return torch.cat(out) if isinstance(out, tuple) else out
+
+
 def compare(name: str, label: str, cases, dtype) -> dict:
     """Each (kernel, twin) pair of ``cases`` on the same inputs."""
     err = rel = 0.0
     for kernel, twin in cases:
-        got, want = kernel(), twin()
+        got, want = joined(kernel()), joined(twin())
         if got.is_cuda:
             torch.cuda.synchronize(got.device)
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
@@ -763,12 +805,14 @@ class Kernel:
     """What the card check holds of one launch name of
     ``_cuda.KERNEL_SOURCES``.  Each callable field reads an operand set
     of the kernel's family: ``band_operands`` ("band"), ``block_operands``
-    or ``star_operands`` ("block"), ``padded_operands`` ("padded")."""
+    or ``star_operands`` ("block"), ``padded_operands`` ("padded"),
+    ``vector_operands`` ("vector")."""
     family: str
     # the TPU kernel it replaces: file:line of its pallas_call (the block
     # inverse, K7 and K8: the JAX functions XLA runs, with no pallas_call;
     # K12: K2's first two calls of an apply chain from zero; K13: the
-    # first two steps of the block apply's fori_loop from zero)
+    # first two steps of the block apply's fori_loop from zero; K14: the
+    # lines of JAX's BiCGSTAB loop XLA runs)
     replaces: str
     kernel: Callable     # the wrapper that launches it
     twin: Callable       # its plain PyTorch twin
@@ -923,6 +967,40 @@ def k11_work(op):
                                              else 1))
 
 
+def vector_work(streams: int, flops: int):
+    """The work model of a K14 pass that moves ``streams`` (n,) streams
+    and computes ``flops`` operations a value."""
+    def work(op):
+        n = op["n"]
+        return streams * n * op["r"].element_size(), flops * n
+    return work
+
+
+def xr_args(op, brk: bool, omega):
+    """The x-and-r pass's arguments on ``op``, with ``brk`` and ``omega``."""
+    return (op["x"], op["r"], op["y"], op["z"], op["s"], op["t"],
+            op["alpha"], omega, op["brk"][brk])
+
+
+def p_library(op):
+    """The solver's former torch expression of the p pass (4 kernels)."""
+    r, p, v, beta, omega = (op[k] for k in ("r", "p", "v", "beta", "omega"))
+    return lambda: r + beta * p - beta * omega * v
+
+
+def s_library(op):
+    """The former ``r − alpha·v`` (2 kernels)."""
+    return lambda: op["r"] - op["alpha"] * op["v"]
+
+
+def xr_library(op):
+    """The former x and r lines and their two ``where`` (8 kernels)."""
+    x, r, y, z, s, t = (op[k] for k in ("x", "r", "y", "z", "s", "t"))
+    alpha, omega, brk = op["alpha"], op["omega"], op["brk"][False]
+    return lambda: (torch.where(brk, x, x + alpha * y + omega * z),
+                    torch.where(brk, r, s - omega * t))
+
+
 UPPER_REASON = ("dinv·(y − U z) is two products: torch.addmv computes only "
                 "y − U z")
 BLOCK_FACTOR_REASON = "no PyTorch call computes a block Chow-Patel sweep"
@@ -1064,6 +1142,29 @@ KERNELS = {
         k11_work,
         "no PyTorch call computes a Chow-Patel sweep over ILU pair lists",
         bitwise=True),
+    # K14, BiCGSTAB's vector updates; library: the torch expressions each
+    # pass replaces.  The p pass: r, p, v and the output
+    "krylov_p_update": Kernel(
+        "vector", "blasted_tpu/solvers/krylov.py:124",
+        krylov_update.p_update, krylov_update.p_update_ref,
+        lambda op: [(op["r"], op["p"], op["v"], op["beta"], op["bo"])],
+        vector_work(4, 4), p_library, bitwise=True),
+    # the s pass: r, v and the output
+    "krylov_s_update": Kernel(
+        "vector", "blasted_tpu/solvers/krylov.py:130",
+        krylov_update.s_update, krylov_update.s_update_ref,
+        lambda op: [(op["r"], op["v"], op["alpha"])], vector_work(3, 2),
+        s_library, bitwise=True),
+    # the x-and-r pass on breakdown (copies), at the lucky half-step
+    # (omega = 0), then as an iteration runs it (timed): x, y, z, s, t and
+    # the two outputs
+    "krylov_xr_update": Kernel(
+        "vector", "blasted_tpu/solvers/krylov.py:137",
+        krylov_update.xr_update, krylov_update.xr_update_ref,
+        lambda op: [xr_args(op, True, op["omega"]),
+                    xr_args(op, False, op["zero"]),
+                    xr_args(op, False, op["omega"])],
+        vector_work(7, 6), xr_library, bitwise=True),
 }
 # the padded path's kernels (K9, K10 in its two modes, K11)
 PADDED = tuple(n for n, k in KERNELS.items() if k.family == "padded")
@@ -1229,6 +1330,12 @@ def sweeps(opts: dict) -> tuple:
     return tuple(map(int, opts["blasted_async_sweeps"].split(",")))
 
 
+def bicgstab_updates(iters: int) -> dict:
+    """K14's launches in a BiCGSTAB solve of ``iters`` iterations: each
+    pass once an iteration (on each row shard of a distributed solve)."""
+    return dict.fromkeys(KRYLOV_UPDATE, iters)
+
+
 def ilu_launches(route: str, nbuild: int, napply: int, iters: int, *,
                  spmvs: int | None = None, factor: bool = True,
                  mixed: bool = False, levels=None) -> dict:
@@ -1240,10 +1347,11 @@ def ilu_launches(route: str, nbuild: int, napply: int, iters: int, *,
     its sweep ``napply − 2`` times, else its sweep ``napply`` times, or,
     SEQUENTIAL, once per level of ``levels`` (lower, upper); with ``mixed``
     (the factor stored in another dtype than the vectors) the apply takes
-    the twins' products and launches none.  A count, or None for "at
-    least once"."""
+    the twins' products and launches none; and BiCGSTAB's own updates
+    (``bicgstab_updates``).  A count, or None for "at least once"."""
     r = ILU_ROUTES[route]
-    out = {r.spmv: 2 * iters + 1 if spmvs is None else spmvs}
+    out = {r.spmv: 2 * iters + 1 if spmvs is None else spmvs,
+           **bicgstab_updates(iters)}
     if factor:
         out.update(r.factor(nbuild))
     applies = 0 if mixed else 2 * iters
@@ -1260,9 +1368,11 @@ def ilu_launches(route: str, nbuild: int, napply: int, iters: int, *,
 
 
 def route_kernels(route: str) -> dict:
-    """Every kernel an ILU(0) solve on ``route`` launches, each at least
-    once (``expect_launches``)."""
-    return dict.fromkeys(ilu_launches(route, 2, 2, 1))
+    """Every kernel of the ILU(0) preconditioner and SpMV that a solve on
+    ``route`` by any Krylov method launches, each at least once
+    (``expect_launches``)."""
+    r = ILU_ROUTES[route]
+    return dict.fromkeys([r.spmv, *r.factor(2), *r.sweeps, *(r.heads or ())])
 
 
 def padded_ilu_launches(prec, iters: int) -> dict:
@@ -1741,7 +1851,9 @@ def check_all_kernels(A, B) -> dict:
     records of the main paths' shapes (K9-K11 on the padded forms of the
     host systems ``A`` and ``B`` of [main] and [block-main], f32, the
     scalar records carrying the block ones under ``block``; then in f64,
-    48³ scalar and bs = 4 g = 24 block, and at bs = 5, g = 48, f32)."""
+    48³ scalar and bs = 4 g = 24 block, and at bs = 5, g = 48, f32; K14
+    at BRATU_N in f32, the records kept, at EX19_N in f64 and unaligned
+    at ODD_N)."""
     f32 = torch.float32
     # K1/K2, K8 and K12 timed at [main]'s 160³; K3/K4, which only
     # [main-compressed] launches, at its 288³ (checked at 160³ as well)
@@ -1765,6 +1877,16 @@ def check_all_kernels(A, B) -> dict:
                                          torch.float64, "cuda", 5))
     torch.cuda.empty_cache()
     ex19_head()
+    # K14, each pass bitwise: timed at Bratu's length in f32 and at ex19's
+    # in f64, and unaligned (one value a step) at an odd length
+    shapes.update(check_family("vector", vector_operands(
+        BRATU_N, f32, "cuda", 14), KRYLOV_UPDATE))
+    check_family("vector", vector_operands(EX19_N, torch.float64, "cuda", 15),
+                 KRYLOV_UPDATE)
+    for dtype in (f32, torch.float64):
+        check_family("vector", vector_operands(ODD_N, dtype, "cuda", 16,
+                                               offset=1))
+    torch.cuda.empty_cache()
     recs = check_family("padded", padded_operands(
         padded_prep(A, "padded-main"), "cuda", 41), KERNELS)
     torch.cuda.empty_cache()
@@ -1822,9 +1944,11 @@ def krylov_main(A, b, B, bb) -> dict:
                             {"n": A.nrows, "host_system": "reused"}, opts,
                             relres_max=KRYLOV_RELRES, reps=3)
         del ctx
-        expect_launches(label, rec["launches"],
-                        {k: expected(v, rec["iters"])
-                         for k, v in want.items()})
+        it = rec["iters"]
+        want = {k: expected(v, it) for k, v in want.items()}
+        if opts["ksp_type"] == "bicgstab":
+            want.update(bicgstab_updates(it))
+        expect_launches(label, rec["launches"], want)
         for k, v in rec["launches"].items():
             total[k] += v
     opts = {"ksp_type": "bicgstab", "blasted_pc_type": "sgs",
@@ -1837,7 +1961,8 @@ def krylov_main(A, b, B, bb) -> dict:
         fail(f"block bicgstab+sgs ran on {type(ctx.prec.mat).__name__}")
     del ctx
     expect_launches("block bicgstab+sgs", rec["launches"],
-                    {"bspmv": expected("bicgstab", rec["iters"])})
+                    {"bspmv": expected("bicgstab", rec["iters"]),
+                     **bicgstab_updates(rec["iters"])})
     for k, v in rec["launches"].items():
         total[k] += v
     torch.cuda.empty_cache()
@@ -1887,10 +2012,10 @@ def amg_main(A, b):
 
 
 def cut_solve(label: str, A, b, opts: dict, route: str, want: dict):
-    """One solve of a phase cut in size, through ``solve`` on the card:
-    converged, true relres ≤ 1.1·rtol, the route, the kernels (each rule
-    of ``want`` a rule of ``expected`` or a function of the preconditioner
-    and the iterations); prints the host set-up (conversion and upload),
+    """One BiCGSTAB solve of a phase cut in size, through ``solve`` on the
+    card: converged, true relres ≤ 1.1·rtol, the route, the kernels (each
+    rule of ``want`` a rule of ``expected`` or a function of the
+    preconditioner and the iterations, and ``bicgstab_updates``); prints the host set-up (conversion and upload),
     first factor (with any symbolic pass), steady factor and solve
     seconds.  Returns the context."""
     opts = dict(opts, rtol=KRYLOV_RTOL, maxiter=2000)
@@ -1901,8 +2026,8 @@ def cut_solve(label: str, A, b, opts: dict, route: str, want: dict):
         fail(f"{label}: took {got}, expected {route}")
     it = rec["iters"]
     expect_launches(label, rec["launches"],
-                    {k: v(ctx.prec, it) if callable(v) else expected(v, it)
-                     for k, v in want.items()})
+                    {**{k: v(ctx.prec, it) if callable(v) else expected(v, it)
+                        for k, v in want.items()}, **bicgstab_updates(it)})
     setup = {"setup_s": rec["solve_call_s_first"] - rec["factor_s_first"]
              - rec["solve_s_first"],
              "factor_s_first": rec["factor_s_first"],
@@ -1923,14 +2048,16 @@ def level_sgs_phase() -> None:
     A, b = seeded_poisson(CUT_NPTS, np.float32)
     opts = {"ksp_type": "bicgstab", "blasted_pc_type": "level_sgs"}
     cut_solve("level-sgs] [dia", A, b, opts,
-              "DiaMatrix + LevelSGSPreconditioner", {"dia_spmv": "bicgstab"})
+              "DiaMatrix + LevelSGSPreconditioner",
+              {"dia_spmv": "bicgstab"})
 
     def k9(prec, it):
         _, nlow, _, nup = prec._levels
         return 2 * it + 1 + 2 * it * (nlow + nup)
 
     cut_solve("level-sgs] [padded csr", A, b, dict(opts, prefer_dia=False),
-              "PaddedCSR + LevelSGSPreconditioner", {"padded_spmv": k9})
+              "PaddedCSR + LevelSGSPreconditioner",
+              {"padded_spmv": k9})
     B, bb = block_system(CUT_NPTS - 2, BLOCK_BS, np.float32, seed=21)
     cut_solve("level-sgs] [block-dia", B, bb, opts,
               "BlockDiaMatrix + BlockLevelSGSPreconditioner",
@@ -2305,26 +2432,28 @@ MODE_KERNELS = {"banded-dia": route_kernels("dist-dia"),
                 "block-dia": route_kernels("dist-bdia")}
 
 
-def mode_padded_counts(case, ctx, iters: int) -> dict:
-    """K9-K11 launches of one dry-run mode: the general modes' shard-local
-    ILU(0) on padded storage (per shard K10 ``napply`` times per mode per
-    apply, two applies per BiCGSTAB iteration, and K11 once per factor
-    sweep; their SpMVs are the distributed gathers, no K9); AMG's
-    shard-local SGS smoothers on padded CSR (per shard K9 once per forward
-    and once per backward sweep of each smoother apply, ``npre + npost``
-    applies per smoothed level and cycle, one cycle per CG apply, iters + 1
-    of them); none on the banded modes."""
+def mode_counts(case, ctx, iters: int) -> dict:
+    """The launches of one dry-run mode that are counted exactly: the
+    general modes' shard-local ILU(0) on padded storage (per shard K10
+    ``napply`` times per mode per apply, two applies per BiCGSTAB
+    iteration, and K11 once per factor sweep; their SpMVs are the
+    distributed gathers, no K9); AMG's shard-local SGS smoothers on padded
+    CSR (per shard K9 once per forward and once per backward sweep of each
+    smoother apply, ``npre + npost`` applies per smoothed level and cycle,
+    one cycle per CG apply, iters + 1 of them); and, in every mode that
+    solves with BiCGSTAB (all but AMG), K14 on each shard."""
     ds = ctx.prec
     P = ds.mesh.size
     if case.name in ("ghost-csr", "bsr-allgather"):
         return {k: P * v for k, v in ilu_launches(
-            "padded", *sweeps(case.options), iters, spmvs=0).items() if v}
+            "padded", *sweeps(case.options), iters, spmvs=0).items()
+                if v}
     if case.name == "amg":
         s = ds.settings
         per_apply = (s.npre + s.npost) * len(ds.levels) \
             * 2 * s.smoother.napplysweeps
         return {"padded_spmv": P * per_apply * (iters + 1)}
-    return {}
+    return {k: P * v for k, v in bicgstab_updates(iters).items()}
 
 
 def dist_modes() -> None:
@@ -2332,8 +2461,8 @@ def dist_modes() -> None:
     (``parallel/dryrun.py``) on four shards of the card, float32, at
     DIST_MODE_SIZES, each through ``solve(..., mesh=...)`` for the dry
     run's two iterations (three CG steps for AMG), asserting its route and
-    the kernels it launches (the general modes and AMG exactly their
-    K9-K11, ``mode_padded_counts``); then one distributed AMG cycle,
+    the kernels it launches (K9-K11 and K14 exactly as ``mode_counts``
+    says); then one distributed AMG cycle,
     bitwise the same with TF32 matmuls allowed and not (C4)."""
     for name, why in CUTS.items():
         print(f"[dist-modes] [{name}] cut to {why}", flush=True)
@@ -2352,7 +2481,7 @@ def dist_modes() -> None:
         print(f"[dist-modes] [{case.name}] " + json.dumps(rec), flush=True)
         expect_launches(case.name, dict(_cuda.launches),
                         {**MODE_KERNELS.get(case.name, {}),
-                         **mode_padded_counts(case, ctx, info.iters)})
+                         **mode_counts(case, ctx, info.iters)})
         if case.name in ("banded-dia", "block-dia"):
             # uneven: the last shard holds the identity-padded rows
             shard_twins(f"dist-modes] [{case.name}", ctx.prec,
@@ -2846,11 +2975,12 @@ def mc_kernel(mesh) -> dict:
     """[mc-kernel]: every kernel on every card of the mesh at the f32
     shapes of [kernel] (K1-K4 on the 160³ band, K5, K6 in both modes and
     the block inverse at bs = 4, g = 128, K9-K11 on the padded forms of
-    the 160³ Poisson matrix and of the bs = 4 g = 128 block system; the
-    host pad and symbolic pass once, copied to each card), each held
-    bitwise to its twin on the same card, its launches counted on that card and no other, and its
-    device time taken on each card (the twin's and the library call's on
-    the first card only: they repeat the kernel's work, not the card's).
+    the 160³ Poisson matrix and of the bs = 4 g = 128 block system, K14 at
+    n = 256³; the host pad and symbolic pass once, copied to each card),
+    each held bitwise to its twin on the same card, its launches counted
+    on that card and no other, and its device time taken on each card
+    (the twin's and the library call's on the first card only: they
+    repeat the kernel's work, not the card's).
     Then a call made while the current device is cuda:0, on operands of
     cuda:2, must be counted on card 2; a call whose operands lie on two
     cards, and a launch of operands that are not on the current card, must
@@ -2867,7 +2997,8 @@ def mc_kernel(mesh) -> dict:
         _cuda.reset_launches()
         ops = {"band": band_operands(MAIN_NPTS - 2, dtype, dev, seed=1),
                "block": block_operands(BLOCK_G, BLOCK_BS, dtype, dev, seed=3),
-               "padded": padded_operands(preps[0], dev, seed=41)}
+               "padded": padded_operands(preps[0], dev, seed=41),
+               "vector": vector_operands(BRATU_N, dtype, dev, seed=14)}
         with torch.cuda.device(dev):
             check_family("padded", padded_operands(preps[1], dev, seed=41),
                          bitwise=True, say=None)
@@ -2903,6 +3034,8 @@ def mc_cross_card(mesh, dtype) -> None:
     on2, on1 = (band_operands(16, dtype, c, seed=9) for c in (c2, c1))
     bon2, bon1 = (block_operands(8, BLOCK_BS, dtype, c, seed=9)
                   for c in (c2, c1))
+    xr = KERNELS["krylov_xr_update"].cases(vector_operands(1001, dtype, c2,
+                                                           seed=9))[-1]
     offs = on2["offsets"]
     _cuda.reset_launches()
     with torch.cuda.device(mesh.first):
@@ -2911,6 +3044,10 @@ def mc_cross_card(mesh, dtype) -> None:
         if y.device != c2 or not torch.equal(y, want):
             fail(f"[mc-kernel] K1 on {c2} called from {mesh.first}: y on "
                  f"{y.device}, bitwise {torch.equal(y, want)}")
+        got, want = (joined(call()) for call in xr)
+        if got.device != c2 or not torch.equal(got, want):
+            fail(f"[mc-kernel] K14 on {c2} called from {mesh.first}: out on "
+                 f"{got.device}, bitwise {torch.equal(got, want)}")
         raised = {}
         for label, call, exc in (
                 ("K1 with data on cuda:2 and x on cuda:1",
@@ -2929,10 +3066,12 @@ def mc_cross_card(mesh, dtype) -> None:
             else:
                 fail(f"[mc-kernel] {label} did not raise")
     by_card = {k: dict(v) for k, v in _cuda.launches_by_device.items() if v}
-    if by_card != {"dia_spmv": {c2.index: 1}}:
+    if by_card != {"dia_spmv": {c2.index: 1},
+                   "krylov_xr_update": {c2.index: 1}}:
         fail(f"[mc-kernel] cross-card checks: launches by card {by_card}")
-    print("[mc-kernel] K1 on cuda:2 operands, called with cuda:0 current: "
-          f"bitwise equal to its twin, launches by card {by_card}; raised: "
+    print("[mc-kernel] K1 and K14 on cuda:2 operands, called with cuda:0 "
+          "current: "
+          f"bitwise equal to their twins, launches by card {by_card}; raised: "
           + json.dumps(raised), flush=True)
 
 
@@ -3060,9 +3199,9 @@ def mc_dist_modes(mesh) -> dict:
     mode's route, the same iterations, x equal to the bit on the banded
     modes (the same kernels on the same shards, reduced in the same order)
     and within MC_MODES_XTOL elsewhere; on the cards each banded mode
-    launches its kernels on every card; each run launches K9-K11 exactly
-    as ``mode_padded_counts`` says, on the cards the general route's K10
-    and K11 on every card.  Returns the card runs' K9-K11 launches by
+    launches its kernels on every card; each run launches K9-K11 and K14
+    exactly as ``mode_counts`` says, on the cards each of them on every
+    card.  Returns the card runs' K9-K11 launches by
     card, summed over the modes."""
     P = mesh.size
     for name, why in CUTS.items():
@@ -3077,9 +3216,10 @@ def mc_dist_modes(mesh) -> dict:
             t0 = time.perf_counter()
             (_, x, info, ctx), = dryrun_multichip(devs, [case])
             ctx.prec.mesh.synchronize()
-            want = mode_padded_counts(case, ctx, info.iters)
+            want = mode_counts(case, ctx, info.iters)
             expect_launches(f"mc-dist-modes {case.name} {key}",
-                            dict(_cuda.launches), want, only=PADDED)
+                            dict(_cuda.launches), want,
+                            only=(*PADDED, *KRYLOV_UPDATE))
             got[key] = {
                 "x": x.cpu(), "iters": info.iters, "padded_want": want,
                 "route": type(ctx.prec).__name__,

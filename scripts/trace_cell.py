@@ -27,7 +27,9 @@ over the process (``ops/_cuda.py``'s ``launch_ns`` over its
 chains start with the zero-start sweep K12 (the counters
 ``precond.zero_start`` over ``precond.ilu_apply``) and of their block-DIA
 ILU(0) applies whose chains start with the block head sweep K13
-(``precond.block_zero_start`` over ``precond.block_apply``), the device's
+(``precond.block_zero_start`` over ``precond.block_apply``), the share of
+their BiCGSTAB iterations whose vector updates ran as the fused kernels
+K14 (``krylov.fused_update`` over the ``krylov.iter`` spans), the device's
 busy and idle seconds, and the idle split.  It takes a cell of either
 route (the host CSR and ``try_dia_from_csr``, or the host BSR and
 ``try_bdia_from_bsr``).
@@ -194,6 +196,7 @@ def main(argv=None) -> int:
     launches = sum(_cuda.launches.values())
     untraced_ms = sum(untraced) / len(untraced) * 1e3
     traced_ms = sum(traced) / len(traced) * 1e3
+    iter_spans = sum(r.name == "krylov.iter" for r in records)
     out = {"workload": args.workload, "seed": args.seed,
            "card": torch.cuda.get_device_name(0), "setup_s": setup_s,
            "setup_phases_s": setup,
@@ -201,8 +204,7 @@ def main(argv=None) -> int:
            "traced_systems": len(traced), "traced_ms": traced_ms,
            "tracing_on_cost": traced_ms / untraced_ms - 1.0,
            "solveinfo_iters": sum(iters),
-           "krylov_iter_spans": sum(r.name == "krylov.iter"
-                                    for r in records),
+           "krylov_iter_spans": iter_spans,
            "launch_host_us": (sum(_cuda.launch_ns.values()) / launches / 1e3
                               if launches else None),
            "zero_start_share": (profiling.counters.get("precond.zero_start",
@@ -211,6 +213,9 @@ def main(argv=None) -> int:
            "block_zero_start_share": (
                profiling.counters.get("precond.block_zero_start", 0)
                / block_applies if block_applies else None),
+           "fused_update_share": (
+               profiling.counters.get("krylov.fused_update", 0) / iter_spans
+               if iter_spans else None),
            **idle_split(events, {r.name for r in records})}
     print(json.dumps(out), flush=True)
     return 0

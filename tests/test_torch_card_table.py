@@ -4,7 +4,8 @@ run through the check loop on its family's operands at a tiny size (on a
 CPU tensor each wrapper runs its twin, so the cases must agree to the
 bit: this holds the operand builders and the calls), its work model and
 its library yardstick; and the byte models beside the benchmark's frozen
-copies (``benchmark/metrics/_bytes.py``, ``_block_bytes.py``).
+copies (``benchmark/metrics/_bytes.py``, ``_block_bytes.py``,
+``krylov_update_roofline.py``).
 
 The kernels themselves run only on the card, where ``python3
 chip_smoke.py`` runs the same loop at the main paths' shapes."""
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 import chip_smoke
-from benchmark.metrics import _block_bytes, _bytes
+from benchmark.metrics import _block_bytes, _bytes, krylov_update_roofline
 from blasted_tpu_torch.apps import poisson3d_system
 from blasted_tpu_torch.ops import _cuda
 
@@ -29,6 +30,9 @@ def _operands(family: str):
         return [chip_smoke.block_operands(4, bs, F64, "cpu", 3)
                 for bs in (2, 4)] + [
             chip_smoke.star_operands(6, 4, F64, "cpu", 19)]
+    if family == "vector":
+        return [chip_smoke.vector_operands(n, dtype, "cpu", 14, offset=off)
+                for n, dtype, off in ((64, torch.float32, 0), (61, F64, 1))]
     A, _, _ = poisson3d_system((6, 6, 6))
     B, _ = chip_smoke.block_system(4, 2, np.float64, seed=43)
     return [chip_smoke.padded_operands(chip_smoke.padded_prep(M, label),
@@ -99,3 +103,16 @@ def test_block_byte_models_match_the_benchmark(name):
     for op in (star, chip_smoke.block_operands(4, 4, torch.float32, "cpu",
                                                3)):
         assert chip_smoke.KERNELS[name].work(op)[0] == _block_models(name, op)
+
+
+@pytest.mark.parametrize("name", chip_smoke.KRYLOV_UPDATE)
+def test_vector_byte_models_match_the_benchmark(name):
+    """K14's passes: the streams ``krylov_update_roofline`` counts, and each
+    pass's library yardstick computing its twin's values."""
+    op = chip_smoke.vector_operands(61, F64, "cpu", 14)
+    k = chip_smoke.KERNELS[name]
+    streams = krylov_update_roofline.STREAMS[name + "_kernel"]
+    assert k.work(op)[0] == streams * 61 * 8
+    kernel, _ = k.cases(op)[-1]
+    assert torch.equal(chip_smoke.joined(kernel()),
+                       chip_smoke.joined(k.library(op)()))

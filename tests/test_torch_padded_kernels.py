@@ -24,7 +24,7 @@ from blasted_tpu.precond.ilu0 import ILU0Preconditioner as JaxILU
 from blasted_tpu_torch import api
 from blasted_tpu_torch.apps import poisson3d_system
 from blasted_tpu_torch.config import AsyncSolverSettings, PrecType
-from blasted_tpu_torch.ops import _cuda, padded
+from blasted_tpu_torch.ops import _cuda, krylov_update, padded
 from blasted_tpu_torch.ops.bstencil import block_inverse_ref
 from blasted_tpu_torch.ops.sweeps import invert_diag_blocks, triangle
 from blasted_tpu_torch.parallel import make_mesh
@@ -326,19 +326,24 @@ def test_padded_solve_runs_the_kernels_wrappers(block, monkeypatch):
     wrapper as often as ``chip_smoke.py``'s launch rule ``ilu_launches``
     requires of the kernels on the card: K9 once per SpMV (2·iters + 1
     with BiCGSTAB), K10 four times per mode per apply (two applies per
-    iteration), K11 eight times."""
+    iteration), K11 eight times, and each of BiCGSTAB's K14 passes once
+    per iteration."""
     import chip_smoke
 
-    calls = dict.fromkeys(["padded_spmv", "padded_lower_sweep",
-                           "padded_upper_sweep", "padded_factor_sweep"], 0)
-    for name in calls:
-        twin = getattr(padded, name + "_ref")
+    twins = {name: (padded, name + "_ref")
+             for name in ("padded_spmv", "padded_lower_sweep",
+                          "padded_upper_sweep", "padded_factor_sweep")}
+    twins.update({name: (krylov_update, name[len("krylov_"):] + "_ref")
+                  for name in chip_smoke.KRYLOV_UPDATE})
+    calls = dict.fromkeys(twins, 0)
+    for name, (module, attr) in twins.items():
+        twin = getattr(module, attr)
 
         def counted(*args, _twin=twin, _name=name):
             calls[_name] += 1
             return _twin(*args)
 
-        monkeypatch.setattr(padded, name + "_ref", counted)
+        monkeypatch.setattr(module, attr, counted)
     if block:
         B, _ = bsr_pair(nb=60, bs=3, density=0.08, seed=4)
         M = B
